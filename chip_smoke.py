@@ -6,12 +6,20 @@
 1. Builds the CUDA kernels (``nerf_fusion_tpu_torch/csrc/*.cu``, one
    ``nvcc`` per source, in parallel) and prints the build time.
 2. Holds every kernel against its plain PyTorch version on the card at
-   the fusion loop's shapes and times both.
-3. Runs the fusion loop through its entry point
-   (``nerf_fusion_tpu_torch.main configs/fusion-synth.yaml``, 640x480, all
-   100 frames) with the launch counters zeroed just before, and fails
-   unless every kernel launched, the box filter dropped nothing, and ATE
-   and mesh |SDF| are below 20 mm.
+   the shapes of the paths below and times both, and the one PyTorch call
+   that computes the same function where there is one.  The gathers are
+   held bit-exact, NaN positions included.
+3. Runs three paths, each with the launch counters zeroed just before:
+   (a) the dense fusion loop through its entry point
+       (``nerf_fusion_tpu_torch.main configs/fusion-synth.yaml``, 640x480,
+       all 100 frames);
+   (b) the fast tracking path: the same with the two deltas of
+       ``configs/fusion-lr-kt-fast.yaml`` (``rgb.pixel_budget`` 24576,
+       ``mesh_reuse_latent_eps`` 0.003) given by ``--exec``;
+   (c) the gather probe (``nerf_fusion_tpu_torch.tools.gather_probe``).
+   Fails unless every kernel launched on some path, the row gather on
+   both fusion paths, and on (a) and (b) the box filter dropped nothing
+   and ATE and mesh |SDF| are below 20 mm.
 4. Prints the ``{"kernels": [...]}`` line, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -29,6 +37,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 CONFIG = "configs/fusion-synth.yaml"
+FAST_EXEC = "tracking['rgb']['pixel_budget']=24576;mesh_reuse_latent_eps=0.003"
 # NVIDIA H100 SXM data sheet peaks (dense, at the 700 W limit).
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -62,6 +71,133 @@ def bound_ms(flops: float, nbytes: float):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def nan_err(out, ref) -> float:
+    """Max abs difference over the non-NaN entries; inf if the NaN
+    positions differ."""
+    import torch
+
+    nan_o, nan_r = torch.isnan(out), torch.isnan(ref)
+    if not torch.equal(nan_o, nan_r):
+        return float("inf")
+    d = (out - ref)[~nan_o].abs()
+    return float(d.max()) if d.numel() else 0.0
+
+
+def gather_case(fn, plain, args, library, nbytes, shape):
+    """One gather held against its plain version and timed beside the
+    PyTorch call that computes the same function; bytes-bound."""
+    import torch
+
+    out, ref = fn(*args), plain(*args)
+    torch.cuda.synchronize()
+    return dict(err=nan_err(out, ref), shape=shape,
+                ms=time_ms(lambda: fn(*args), 100),
+                plain_ms=time_ms(lambda: plain(*args), 100),
+                library_ms=time_ms(library, 100), bound=bound_ms(0.0, nbytes))
+
+
+def gather_phase(dev, fr_next):
+    """The row gather at the dense warp's, the probe's and the selection's
+    shapes, the single-plane row gather, and the lane gather."""
+    import numpy as np
+    import torch
+
+    from nerf_fusion_tpu_torch.ops import gather, imgproc
+    from nerf_fusion_tpu_torch.system.frontend import preprocess_frame
+    from nerf_fusion_tpu_torch.tools.gather_probe import warp_indices
+
+    rng = np.random.default_rng(0)
+
+    def row_case(rows, idx, shape):
+        n, c = rows.shape[0], 1 if rows.dim() == 1 else rows.shape[1]
+        idx64 = idx.long().clamp(0, n - 1)
+        touched = int(torch.unique(idx64).numel())
+        m = idx.shape[0]
+        return gather_case(gather.row_gather, gather.row_gather_plain, (rows, idx),
+                           lambda: torch.index_select(rows, 0, idx64),
+                           m * 4 + m * c * 4 + touched * c * 4, shape)
+
+    # (N, 2) [intensity, depth] of a 640x480 frame at the stride-2 warp of
+    # the dense photometric term (level 0: 76800 indices)
+    c = fr_next.calib
+    pre = preprocess_frame(fr_next.rgb, fr_next.depth, c.fx, c.fy, c.cx, c.cy,
+                           0.5, 5.0, 40960)
+    I0, D0, G0 = pre.pyramid.intensity[0], pre.pyramid.depth[0], pre.pyramid.gradient[0]
+    H, W = I0.shape
+    rows2 = torch.stack([I0.reshape(-1), D0.reshape(-1)], -1)
+    v = np.clip(np.arange(0, H, 2)[:, None] + np.rint(rng.normal(size=(H // 2, W // 2))
+                                                       * 1.5).astype(np.int64), 0, H - 1)
+    u = np.clip(np.arange(0, W, 2)[None, :] + np.rint(rng.normal(size=(H // 2, W // 2))
+                                                       * 1.5).astype(np.int64), 0, W - 1)
+    lin = torch.as_tensor((v * W + u).reshape(-1).astype(np.int32), device=dev)
+    dense = row_case(rows2, lin, f"({H * W}, 2) at {lin.shape[0]}")
+    # the probe's shape: (307200, 2) at 307200 warp-like indices
+    rows_p = torch.as_tensor(rng.normal(size=(H * W, 2)).astype(np.float32), device=dev)
+    idx_p = torch.as_tensor(warp_indices(rng, H * W, W), device=dev)
+    probe = row_case(rows_p, idx_p, f"({H * W}, 2) at {H * W}")
+    # the selection of the fast path at level 0: (N, 4) at k = 24576, and
+    # the selected pixels against the CPU's selection of the same planes
+    sel = imgproc.select_photometric_pixels(I0, D0, G0, 24576, 0.0, stride=2)
+    sel_cpu = imgproc.select_photometric_pixels(I0.cpu(), D0.cpu(), G0.cpu(), 24576, 0.0,
+                                                stride=2)
+    torch.cuda.synchronize()
+    sel_match = all(nan_err(a.cpu().float(), b.float()) == 0.0 for a, b in zip(sel, sel_cpu))
+    sel_idx = (sel[1] * W + sel[0]).to(torch.int32)
+    rows4 = torch.stack([I0.reshape(-1), D0.reshape(-1), G0[0].reshape(-1),
+                         G0[1].reshape(-1)], -1)
+    select = row_case(rows4, sel_idx, f"({H * W}, 4) at {sel_idx.shape[0]}")
+    plane = rows_p[:, 0].contiguous()
+    single = row_case(plane, idx_p, f"({H * W},) at {H * W}")
+
+    # (480, 3200) lane gather; 5 % of the indices negative (wrap once),
+    # 1 % >= B and 1 % < -B (NaN)
+    B = 3200
+    src = torch.as_tensor(rng.normal(size=(H, B)).astype(np.float32), device=dev)
+    li = rng.integers(0, B, (H, B))
+    pick = rng.random((H, B))
+    li = np.where(pick < 0.05, -rng.integers(1, B + 1, (H, B)), li)
+    li = np.where((pick >= 0.05) & (pick < 0.06), B + rng.integers(0, 9, (H, B)), li)
+    li = np.where((pick >= 0.06) & (pick < 0.07), -B - 1 - rng.integers(0, 9, (H, B)), li)
+    lidx = torch.as_tensor(li.astype(np.int32), device=dev)
+    wrapped = torch.where(lidx < 0, lidx + B, lidx).long()
+    inr = (wrapped >= 0) & (wrapped < B)
+    lib_idx = wrapped.clamp(0, B - 1)
+    row_ids = torch.arange(H, device=dev)[:, None] * B + lib_idx
+    touched = int(torch.unique(row_ids[inr]).numel())
+    lane = gather_case(gather.lane_gather, gather.lane_gather_plain, (src, lidx),
+                       lambda: torch.gather(src, 1, lib_idx), H * B * 8 + touched * 4,
+                       f"({H}, {B}) at ({H}, {B})")
+    rows = [
+        dict(name="row_gather", err=dense["err"], tol=0.0,
+             source="nerf_fusion_tpu_torch/csrc/gather.cu",
+             replaces="tools/gather_exp3.py:88 (pallas_gather)",
+             shape=dense["shape"] + " (dense warp, stride 2)",
+             ms=dense["ms"], plain_ms=dense["plain_ms"], bound=dense["bound"],
+             library_ms=dense["library_ms"], selection_matches_cpu=sel_match,
+             cases=[dict(case=k, shape=v["shape"], max_abs_err=v["err"], ms=v["ms"],
+                         plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
+                         library_ms=v["library_ms"])
+                    for k, v in (("dense_warp", dense), ("probe", probe),
+                                 ("selection_c4", select))]),
+        dict(name="row_gather_c1", err=single["err"], tol=0.0,
+             source="nerf_fusion_tpu_torch/csrc/gather.cu",
+             replaces="tools/gather_exp3.py:115 (pallas_gather1)", shape=single["shape"],
+             ms=single["ms"], plain_ms=single["plain_ms"], bound=single["bound"],
+             library_ms=single["library_ms"]),
+        dict(name="lane_gather", err=lane["err"], tol=0.0,
+             source="nerf_fusion_tpu_torch/csrc/gather.cu",
+             replaces="tools/gather_exp4.py:72 (lane_gather)", shape=lane["shape"],
+             ms=lane["ms"], plain_ms=lane["plain_ms"], bound=lane["bound"],
+             library_ms=lane["library_ms"]),
+    ]
+    for k, v in (("probe", probe), ("selection_c4", select)):
+        if not v["err"] <= 0.0:
+            fail(f"row_gather ({k}) differs from its plain version: {v['err']}")
+    if not sel_match:
+        fail("select_photometric_pixels on the card differs from the CPU's selection")
+    return rows
+
+
 def kernel_phase(dev):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
@@ -87,7 +223,7 @@ def kernel_phase(dev):
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     rows.append(dict(
-        name="decoder_forward", fn=mlp.decoder_forward, err=err, tol=TOL_MLP,
+        name="decoder_forward", err=err, tol=TOL_MLP,
         source="nerf_fusion_tpu_torch/csrc/mlp.cu",
         replaces="nerf_fusion_tpu/ops/pallas_mlp.py:98 (_decoder_pallas_call)",
         shape=f"({n}, 32) -> ({n}, 2)",
@@ -105,7 +241,7 @@ def kernel_phase(dev):
     err = float((out - ref).abs().max())
     gdiff = (grad - gref).abs().amax(dim=1)
     rows.append(dict(
-        name="decoder_forward_grad", fn=mlp.decoder_forward_grad, err=err, tol=TOL_MLP,
+        name="decoder_forward_grad", err=err, tol=TOL_MLP,
         grad_err=float(gdiff.max()), grad_tol=TOL_GRAD,
         grad_within_tol=float((gdiff <= TOL_GRAD).float().mean()),
         source="nerf_fusion_tpu_torch/csrc/mlp.cu",
@@ -125,7 +261,7 @@ def kernel_phase(dev):
     ref = mlp.encoder_forward_plain(xe, enc.mats)
     torch.cuda.synchronize()
     rows.append(dict(
-        name="encoder_forward", fn=mlp.encoder_forward,
+        name="encoder_forward",
         err=float((out - ref).abs().max()), tol=TOL_MLP,
         source="nerf_fusion_tpu_torch/csrc/mlp.cu",
         replaces="nerf_fusion_tpu/ops/pallas_mlp.py:165 (_encoder_pallas_call)",
@@ -153,7 +289,7 @@ def kernel_phase(dev):
     n_valid = int(valid.sum())
     n_acc = float(cref.sum())
     rows.append(dict(
-        name="stencil_count", fn=stencil.neighbor_count,
+        name="stencil_count",
         err=float((cnt - cref).abs().max()), tol=0.0,
         source="nerf_fusion_tpu_torch/csrc/stencil.cu",
         replaces="nerf_fusion_tpu/ops/pallas_stencil.py:202 (_padded_call via "
@@ -173,7 +309,7 @@ def kernel_phase(dev):
     n_valid = int(gated.sum())
     n_acc = float(cnt_p.sum())
     rows.append(dict(
-        name="stencil_normals", fn=stencil.normals_stencil,
+        name="stencil_normals",
         err=float((nrm_k - nrm_p)[:, m].abs().max()), tol=None,
         normal_agree_frac=frac, count_err=float((cnt_k - cnt_p).abs().max()),
         source="nerf_fusion_tpu_torch/csrc/stencil.cu",
@@ -184,9 +320,10 @@ def kernel_phase(dev):
         plain_ms=time_ms(lambda: stencil.normals_stencil_plain(pts0, gated, 0.1)),
         bound=bound_ms(n_valid * (49 * 8 + 100) + n_acc * 16, px * (13 + 16))))
 
+    rows += gather_phase(dev, seq.render_frame(1))
     for r in rows:
         extra = {k: r[k] for k in ("grad_err", "grad_within_tol", "normal_agree_frac",
-                                   "count_err")
+                                   "count_err", "library_ms", "selection_matches_cpu")
                  if k in r}
         print(f"kernel {r['name']}: {r['shape']} max_abs_err {r['err']:.3e} {extra} "
               f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
@@ -210,45 +347,110 @@ def kernel_phase(dev):
     return rows
 
 
-def main_path(dev):
+KERNEL_ROWS = ("decoder_forward", "decoder_forward_grad", "encoder_forward",
+               "stencil_count", "stencil_normals", "row_gather", "row_gather_c1",
+               "lane_gather")
+
+
+def zero_launches():
+    from nerf_fusion_tpu_torch.ops import gather, mlp, stencil
+
+    for w in (mlp.decoder_forward, mlp.decoder_forward_grad, mlp.encoder_forward,
+              stencil.neighbor_count, stencil.normals_stencil):
+        w.launches = 0
+    gather.reset_launches()
+
+
+def read_launches() -> dict:
+    """Launches per kernel row; the row gather is split by row width: C = 2
+    and 4 are ``pallas_gather``'s counterpart, C = 1 ``pallas_gather1``'s."""
+    from nerf_fusion_tpu_torch.ops import gather, mlp, stencil
+
+    by_c = gather.row_gather.launches_by_c
+    return {"decoder_forward": mlp.decoder_forward.launches,
+            "decoder_forward_grad": mlp.decoder_forward_grad.launches,
+            "encoder_forward": mlp.encoder_forward.launches,
+            "stencil_count": stencil.neighbor_count.launches,
+            "stencil_normals": stencil.normals_stencil.launches,
+            "row_gather": by_c[2] + by_c[4], "row_gather_c1": by_c[1],
+            "lane_gather": gather.lane_gather.launches,
+            "row_gather_by_width": dict(by_c)}
+
+
+def fusion_path(dev, label: str, exec_: str = None):
     """The fusion loop through its entry point, launch counters zeroed."""
     import torch
 
     from nerf_fusion_tpu_torch import main as entry
-    from nerf_fusion_tpu_torch.ops import mlp, stencil
 
-    wrappers = (mlp.decoder_forward, mlp.decoder_forward_grad, mlp.encoder_forward,
-                stencil.neighbor_count, stencil.normals_stencil)
-    for w in wrappers:
-        w.launches = 0
-    out_dir = REPO / "output" / "chip_smoke"
+    out_dir = REPO / "output" / "chip_smoke" / label
+    argv = [str(REPO / CONFIG), "--device", str(dev), "--output", str(out_dir)]
+    if exec_:
+        argv += ["--exec", exec_]
     torch.cuda.synchronize()
+    zero_launches()
     t0 = time.perf_counter()
-    res = entry.main([str(REPO / CONFIG), "--device", str(dev),
-                      "--output", str(out_dir)])
+    res = entry.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {w.__name__: w.launches for w in wrappers}
+    launches = read_launches()
     n = res["n_frames"]
     stages = {k: round(v["mean_ms"], 3) for k, v in res["timing"].items()}
-    print(f"main path: {n} frames in {wall:.2f} s ({n / wall:.2f} fps incl. "
+    print(f"{label} path: {n} frames in {wall:.2f} s ({n / wall:.2f} fps incl. "
           f"rendering and output), stage mean ms {stages}", flush=True)
-    print(f"main path: ATE {1e3 * res['ate_rmse']:.3f} mm, mesh |SDF| "
+    print(f"{label} path: ATE {1e3 * res['ate_rmse']:.3f} mm, mesh |SDF| "
           f"{1e3 * res.get('mesh_abs_sdf', float('nan')):.3f} mm, "
           f"{res['n_triangles']} triangles, box-filter drop_frac "
           f"{res['box_filter_drop_frac']}, launches {launches}", flush=True)
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+    if "mesh_reuse" in res:
+        print(f"{label} path: latent-reuse gate skipped {res['mesh_reuse']['skipped']} "
+              f"of {res['mesh_reuse']['updated']} updated voxels", flush=True)
     if res["box_filter_drop_frac"]["max"] != 0.0:
-        fail(f"box filter dropped points: {res['box_filter_drop_frac']}")
+        fail(f"{label}: box filter dropped points: {res['box_filter_drop_frac']}")
     if not res["ate_rmse"] < 0.02:
-        fail(f"ATE {res['ate_rmse']} m >= 0.02")
+        fail(f"{label}: ATE {res['ate_rmse']} m >= 0.02")
     if not res.get("mesh_abs_sdf", 1.0) < 0.02:
-        fail(f"mesh |SDF| {res.get('mesh_abs_sdf')} m >= 0.02")
+        fail(f"{label}: mesh |SDF| {res.get('mesh_abs_sdf')} m >= 0.02")
     if res["n_triangles"] <= 0:
-        fail("empty mesh")
-    return launches
+        fail(f"{label}: empty mesh")
+    return launches, res
+
+
+def probe_path():
+    """The gather probe through its entry point, launch counters zeroed."""
+    import torch
+
+    from nerf_fusion_tpu_torch.tools import gather_probe
+
+    torch.cuda.synchronize()
+    zero_launches()
+    res = gather_probe.main(["--reps", "50"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"probe path: launches {launches}", flush=True)
+    return launches, res
+
+
+def check_launches(paths: dict):
+    required = {
+        "dense": ("decoder_forward", "decoder_forward_grad", "encoder_forward",
+                  "stencil_count", "stencil_normals", "row_gather"),
+        "fast": ("decoder_forward", "decoder_forward_grad", "encoder_forward",
+                 "stencil_count", "stencil_normals", "row_gather"),
+        "probe": ("row_gather", "row_gather_c1", "lane_gather"),
+    }
+    for label, names in required.items():
+        for name in names:
+            if paths[label][name] <= 0:
+                fail(f"kernel {name} was not launched on the {label} path")
+    widths = {"dense": (2,), "fast": (2, 4), "probe": (1, 2, 4)}
+    for label, cs in widths.items():
+        for c in cs:
+            if paths[label]["row_gather_by_width"][c] <= 0:
+                fail(f"row_gather at width {c} was not launched on the {label} path")
+    for name in KERNEL_ROWS:
+        if sum(p[name] for p in paths.values()) <= 0:
+            fail(f"kernel {name} was launched on no path")
 
 
 def main() -> int:
@@ -273,19 +475,27 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  {name}: {line.strip()}")
     rows = kernel_phase(dev)
-    launches = main_path(dev)
+    paths = {}
+    paths["dense"], _ = fusion_path(dev, "dense")
+    paths["fast"], _ = fusion_path(dev, "fast", FAST_EXEC)
+    paths["probe"], _ = probe_path()
+    check_launches(paths)
     kernels = []
     for r in rows:
-        fn_name = r["fn"].__name__
+        by_path = {label: p[r["name"]] for label, p in paths.items()}
         kernels.append({
             "name": r["name"], "route": "cuda", "source": r["source"],
-            "replaces": r["replaces"], "launches": launches[fn_name],
+            "replaces": r["replaces"], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": r["err"], "tolerance": r["tol"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": None, "shape": r["shape"],
+            "library_ms": r.get("library_ms"), "shape": r["shape"],
             **{k: r[k] for k in ("grad_err", "grad_tol", "grad_within_tol", "count_err",
-                                 "normal_agree_frac") if k in r}})
+                                 "normal_agree_frac", "selection_matches_cpu", "cases")
+               if k in r}})
+    if sorted(k["name"] for k in kernels) != sorted(KERNEL_ROWS):
+        fail(f"kernel rows {[k['name'] for k in kernels]} are not {KERNEL_ROWS}")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -22,7 +22,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("mlp", "stencil")
+SOURCES = ("mlp", "stencil", "gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -39,6 +39,10 @@ SIGNATURES = {
     "stencil": {
         "stencil_normals": (_P, _P, _I, _I, _F, _P, _P, _P),
         "stencil_count": (_P, _P, _I, _I, _F, _P, _P),
+    },
+    "gather": {
+        "row_gather": (_P, _I, _I, _P, _I, _P, _P),
+        "lane_gather": (_P, _P, _I, _I, _P, _P),
     },
 }
 

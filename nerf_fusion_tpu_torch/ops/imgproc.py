@@ -11,9 +11,13 @@ Counterparts of the JAX package's ``ops/imgproc.py``:
     kernels (``ops.stencil``); pixels outside the image count as invalid.
   * ``box_filter_points_exact`` sort-based voxel-grid mean downsample
   * ``rgb_odometry``            dense photometric residual + 6-DoF Jacobian
+  * ``select_photometric_pixels`` / ``rgb_odometry_sparse``: the sparse
+    photometric term (top-k gradient pixels once per frame, then one k-row
+    warp gather per evaluation)
 
 The TPU layout tricks of the JAX versions (one-hot lane-selection matmuls
 for strided slices) are plain slices here: they select the same values.
+The warp gathers go through the row-gather kernel (``ops.gather``).
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from . import gather
 
 HALO = 3
 
@@ -275,19 +281,34 @@ def rgb_odometry(prev_intensity, prev_depth, cur_intensity, cur_depth,
                       + kt[0]) / wz)
     v0 = torch.round((d1 * (krkinv[1, 0] * u + krkinv[1, 1] * v + krkinv[1, 2])
                       + kt[1]) / wz)
-    inb = (u0 >= 0) & (u0 < W) & (v0 >= 0) & (v0 < H)
-    # clamp as floats first: a NaN or infinite warp has no integer value
-    u0c = torch.nan_to_num(u0, nan=0.0).clamp(0, W - 1).long()
-    v0c = torch.nan_to_num(v0, nan=0.0).clamp(0, H - 1).long()
-    lin = (v0c * W + u0c).reshape(-1)
-    i0 = prev_intensity.reshape(-1)[lin].reshape(h, w)
-    d0 = prev_depth.reshape(-1)[lin].reshape(h, w)
+    inb, u0c, v0c, lin = _warp_index(u0, v0, W, H)
+    # one packed (H*W, 2) row gather of [intensity, depth]
+    rows = torch.stack([prev_intensity.reshape(-1), prev_depth.reshape(-1)], dim=-1)
+    got = gather.row_gather(rows, lin.reshape(-1))
+    i0 = got[:, 0].reshape(h, w)
+    d0 = got[:, 1].reshape(h, w)
     ok = ok & inb & torch.isfinite(d0) & (d0 > 0.0) \
         & (torch.abs(wz - d0) <= max_depth_delta)
-
     f = torch.where(ok, cur_intensity - i0, torch.zeros_like(i0))
-    Gx = d0 * (u0c.to(torch.float32) - cx) / fx
-    Gy = d0 * (v0c.to(torch.float32) - cy) / fy
+    J = _warp_jacobian(ok, d0, u0c, v0c, gx, gy, fx, fy, cx, cy)
+    return f, J, ok
+
+
+def _warp_index(u0, v0, W: int, H: int):
+    """Rounded warp coordinates -> (in-bounds mask, clamped u0 and v0 as
+    f32, int32 linear index into the (H*W) source)."""
+    inb = (u0 >= 0) & (u0 < W) & (v0 >= 0) & (v0 < H)
+    # clamp as floats first: a NaN or infinite warp has no integer value
+    u0c = torch.nan_to_num(u0, nan=0.0).clamp(0, W - 1)
+    v0c = torch.nan_to_num(v0, nan=0.0).clamp(0, H - 1)
+    lin = (v0c.to(torch.int32) * W + u0c.to(torch.int32))
+    return inb, u0c, v0c, lin
+
+
+def _warp_jacobian(ok, d0, u0c, v0c, gx, gy, fx, fy, cx, cy):
+    """6-DoF photometric Jacobian (plane-major), zero where not ``ok``."""
+    Gx = d0 * (u0c - cx) / fx
+    Gy = d0 * (v0c - cy) / fy
     Gz = torch.clamp_min(d0, 1e-6)
     p0 = gx * fx / Gz
     p1 = gy * fy / Gz
@@ -296,5 +317,64 @@ def rgb_odometry(prev_intensity, prev_depth, cur_intensity, cur_depth,
                      -Gz * p1 + Gy * p2,
                      Gz * p0 - Gx * p2,
                      -Gy * p0 + Gx * p1], dim=0)
-    J = torch.where(ok[None], J, torch.zeros_like(J))
+    return torch.where(ok[None], J, torch.zeros_like(J))
+
+
+def select_photometric_pixels(cur_intensity, cur_depth, cur_dIdxy, k: int,
+                              min_grad_scale: float, stride: int = 1):
+    """Fixed-budget sparse pixel selection for the photometric term.
+
+    The ``k`` pixels on the stride grid with the largest intensity-gradient
+    magnitude among those with finite gradient and depth.  The stride is
+    folded into the candidate mask; the budget is capped at the number of
+    grid pixels (invalid ones included, ``valid`` False).  Equal scores are
+    taken lowest index first, as ``lax.top_k`` does: a stable descending
+    sort (``torch.topk`` may pick another set among ties).
+    :return: (u, v, i1, d1, gx, gy, valid), (kk,) each, full-resolution
+        pixel units.
+    """
+    h, w = cur_intensity.shape
+    gx, gy = cur_dIdxy[0], cur_dIdxy[1]
+    grad2 = gx * gx + gy * gy
+    ok = torch.isfinite(grad2) & (grad2 >= min_grad_scale) & torch.isfinite(cur_depth)
+    if stride > 1:
+        dev = cur_intensity.device
+        ok = ok & (torch.arange(h, device=dev)[:, None] % stride == 0) \
+            & (torch.arange(w, device=dev)[None, :] % stride == 0)
+    score = torch.where(ok, grad2, torch.full_like(grad2, -1.0)).reshape(-1)
+    kk = min(k, ((h - 1) // stride + 1) * ((w - 1) // stride + 1))
+    vals, idx = torch.sort(score, descending=True, stable=True)
+    vals, idx = vals[:kk], idx[:kk]
+    valid = vals >= 0.0
+    u = (idx % w).to(torch.float32)
+    v = (idx // w).to(torch.float32)
+    rows = torch.stack([cur_intensity.reshape(-1), cur_depth.reshape(-1),
+                        gx.reshape(-1), gy.reshape(-1)], dim=-1)
+    got = gather.row_gather(rows, idx.to(torch.int32))
+    return u, v, got[:, 0], got[:, 1], got[:, 2], got[:, 3], valid
+
+
+def rgb_odometry_sparse(prev_rows, W: int, H: int, pix, fx, fy, cx, cy,
+                        krkinv, kt, max_depth_delta: float):
+    """Photometric residual + Jacobian at a selected pixel set: the math of
+    ``rgb_odometry`` on (k,) vectors with one k-row gather.
+
+    :param prev_rows: (H*W, 2) f32 rows of [intensity, depth] of the
+        previous frame.
+    :param pix: output of :func:`select_photometric_pixels`.
+    :return: (f (k,), J (6, k), ok (k,)).
+    """
+    u, v, i1, d1, gx, gy, valid = pix
+    wz = d1 * (krkinv[2, 0] * u + krkinv[2, 1] * v + krkinv[2, 2]) + kt[2]
+    u0 = torch.round((d1 * (krkinv[0, 0] * u + krkinv[0, 1] * v + krkinv[0, 2])
+                      + kt[0]) / wz)
+    v0 = torch.round((d1 * (krkinv[1, 0] * u + krkinv[1, 1] * v + krkinv[1, 2])
+                      + kt[1]) / wz)
+    inb, u0c, v0c, lin = _warp_index(u0, v0, W, H)
+    got = gather.row_gather(prev_rows, lin)
+    i0, d0 = got[:, 0], got[:, 1]
+    ok = valid & inb & torch.isfinite(d0) & (d0 > 0.0) \
+        & (torch.abs(wz - d0) <= max_depth_delta)
+    f = torch.where(ok, i1 - i0, torch.zeros_like(i0))
+    J = _warp_jacobian(ok, d0, u0c, v0c, gx, gy, fx, fy, cx, cy)
     return f, J, ok

@@ -1,7 +1,7 @@
 """Where the fusion loop's time goes on the GPU.
 
     python -m nerf_fusion_tpu_torch.profile_loop configs/fusion-synth.yaml \
-        [--warm 21] [--frames 20]
+        [--warm 21] [--frames 20] [--exec "STATEMENTS"]
 
 Runs the loop for ``--warm`` frames, times the next ``--frames`` frames
 (window A) on the host clock, then traces the ``--frames`` after those
@@ -9,7 +9,9 @@ Runs the loop for ``--warm`` frames, times the next ``--frames`` frames
 the default 20-frame interval) with ``torch.profiler``.  Prints per frame
 the wall time of A, the device-busy time of B (the sum of the kernel
 durations; one stream, so kernels do not overlap) and the device's idle
-share 1 - busy / wall; then the 15 costliest kernels of B.
+share 1 - busy / wall; then the 15 costliest kernels of B.  ``--exec``
+overrides config keys as the entry point's does, e.g. the fast tracking
+path: ``--exec "tracking['rgb']['pixel_budget']=24576;mesh_reuse_latent_eps=0.003"``.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ def main(argv=None):
     parser.add_argument("config")
     parser.add_argument("--warm", type=int, default=21)
     parser.add_argument("--frames", type=int, default=20)
+    parser.add_argument("--exec", type=str, default=None,
+                        help="Python statements mutating the parsed config")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_loop measures the GPU; no CUDA device is available")
@@ -39,6 +43,8 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     args = exp_util.parse_config_yaml(opts.config)
+    if opts.exec is not None:
+        exp_util.apply_exec(args, opts.exec)
     model, args.model = load_model(args.training_hypers, args.using_epoch)
     args.mapping = exp_util.dict_to_args(args.mapping)
     args.tracking = exp_util.dict_to_args(args.tracking)

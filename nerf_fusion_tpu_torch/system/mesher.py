@@ -10,7 +10,8 @@ Counterpart of the JAX package's ``system/mesher.py`` for the fusion loop:
   * ``Mesher``: the host triangle cache keyed by owning voxel (every voxel
     of a re-meshed batch drops its stale triangles), deferred fetches
     (``materialize=False``), the deferral drain of materialising
-    extractions, and PLY export.
+    extractions, the latent-reuse gate (``reuse_latent_eps``) and PLY
+    export.
 
 The decoder runs in f32 whatever ``mesh_decode_precision`` says.
 """
@@ -27,6 +28,16 @@ from ..ops import voxel as voxops
 from ..ops.marching_cubes import marching_cubes_sparse
 
 MESH_CHUNK = 512
+
+
+class MeshCache(NamedTuple):
+    """The latent-reuse gate's state, updated in place by ``fused_extract``:
+    each slot's latent at its last meshing (row C is a sentinel), whether
+    that snapshot exists, and a device count of the updated voxels the gate
+    saw and skipped (the owner's, kept across snapshots)."""
+    lat: torch.Tensor           # (C + 1, L) f32
+    valid: torch.Tensor         # (C + 1,) bool
+    counts: torch.Tensor        # (2,) int64: updated, skipped
 
 
 class _Pending(NamedTuple):
@@ -64,9 +75,15 @@ def decode_cubes(decoder, latents_b: torch.Tensor, r: int):
 
 
 def fused_extract(state, updated_mask, cfg, decoder, r: int, mesh_budget: int,
-                  tri_budget: int, max_std: float):
+                  tri_budget: int, max_std: float, mesh_cache: MeshCache = None,
+                  reuse_eps: float = 0.0):
     """One incremental extraction.
 
+    ``mesh_cache`` (optional) gates the updated set: an updated voxel whose
+    latent moved by at most ``reuse_eps`` (max-abs) since its last meshing
+    is dropped before the 6-neighbour dilation.  The snapshot of every
+    voxel this batch meshes is then refreshed in place (deferred voxels
+    keep their old snapshot).
     :return: (MCResult, mesh_ids (mesh_budget,), keep (mesh_budget,) bool,
               map_overflow (), leftover (C,) bool, n_leftover ()).
     """
@@ -75,6 +92,11 @@ def fused_extract(state, updated_mask, cfg, decoder, r: int, mesh_budget: int,
     positions = state.positions.long()
     indexer = state.indexer.long()
     upd = updated_mask & (positions >= 0)
+    if mesh_cache is not None:
+        delta = (state.latents - mesh_cache.lat[:C]).abs().amax(dim=-1)
+        gated = upd & (~mesh_cache.valid[:C] | (delta > reuse_eps))
+        mesh_cache.counts.add_(torch.stack([upd.sum(), (upd & ~gated).sum()]))
+        upd = gated
     upd_ids, upd_valid, _ = voxops.compact_by_mask(positions, upd, mesh_budget)
     exp_ids, exp_valid = voxops.expand_neighbors6(upd_ids, upd_valid, cfg.n_xyz)
     uniq, uniq_valid, _, _ = voxops.masked_unique(exp_ids, exp_valid, mesh_budget)
@@ -90,6 +112,10 @@ def fused_extract(state, updated_mask, cfg, decoder, r: int, mesh_budget: int,
                           torch.arange(mesh_budget, device=dev))
     batch_map = batch_map[:C]
     lat_b = torch.where(keep[:, None], state.latents[slot_c], 0.0)
+    if mesh_cache is not None:
+        dst = torch.where(keep, slot_c, C)
+        mesh_cache.lat.index_copy_(0, dst, state.latents[slot_c])
+        mesh_cache.valid.index_fill_(0, dst, True)
 
     # Deferral set: allocated, confident slots in the 6-neighbour dilation
     # of the updated set that this batch did not take.
@@ -129,7 +155,7 @@ class Mesher:
     """Owns the incremental triangle cache for one map (sync mode)."""
 
     def __init__(self, vmap, max_n_triangles: int = 1 << 17,
-                 mesh_batch_budget: int = 4096):
+                 mesh_batch_budget: int = 4096, reuse_latent_eps: float = 0.0):
         self.map = vmap
         self.budget = int(max_n_triangles)
         self.vertices = np.zeros((0, 3, 3), np.float32)
@@ -139,6 +165,17 @@ class Mesher:
         self.mesh_budget = -(-int(mesh_batch_budget) // MESH_CHUNK) * MESH_CHUNK
         self.fused_tri_budget = min(self.budget, max(1 << 15, self.mesh_budget * 64))
         self._need_full_remesh = False
+        # Latent-reuse gate (0 disables): the snapshot is keyed by the
+        # extraction parameters that shape triangles, (r, max_std).
+        self.reuse_latent_eps = float(reuse_latent_eps)
+        self._mesh_cache = None
+        self._mesh_cache_key = None
+        self._reuse_counts = torch.zeros(2, dtype=torch.int64, device=vmap.device)
+
+    def reuse_stats(self) -> dict:
+        """Updated voxels the gate saw and skipped over the whole run."""
+        n_upd, n_skip = self._reuse_counts.tolist()
+        return {"updated": n_upd, "skipped": n_skip}
 
     def extract(self, voxel_resolution: int, max_std: float = 2000.0,
                 no_cache: bool = False, materialize: bool = True):
@@ -178,9 +215,20 @@ class Mesher:
             vmap.updated_slots[:] = False
         if upd is None:
             return
+        r = int(voxel_resolution)
+        if self.reuse_latent_eps > 0.0:
+            key = (r, float(max_std))
+            if self._mesh_cache is None or self._mesh_cache_key != key:
+                C, L = vmap.state.latents.shape
+                self._mesh_cache = MeshCache(
+                    torch.zeros((C + 1, L), dtype=torch.float32, device=vmap.device),
+                    torch.zeros(C + 1, dtype=torch.bool, device=vmap.device),
+                    self._reuse_counts)
+                self._mesh_cache_key = key
         result, ids, keep, map_ovf, leftover, n_left = fused_extract(
-            vmap.state, upd, vmap.cfg, vmap.model.decoder, int(voxel_resolution),
-            self.mesh_budget, self.fused_tri_budget, float(max_std))
+            vmap.state, upd, vmap.cfg, vmap.model.decoder, r,
+            self.mesh_budget, self.fused_tri_budget, float(max_std),
+            mesh_cache=self._mesh_cache, reuse_eps=self.reuse_latent_eps)
         self._pending.append(_Pending(ids, keep, result, map_ovf, leftover, n_left))
 
     def _extract_chunked(self, voxel_resolution: int, max_std: float,
@@ -188,7 +236,10 @@ class Mesher:
         """Full re-mesh of every observed voxel, unbounded: the repair path
         after a batch lost triangles to a device budget (and the
         ``no_cache`` path).  Host bookkeeping in numpy, decode in
-        ``MESH_CHUNK``-voxel chunks, one marching-cubes pass."""
+        ``MESH_CHUNK``-voxel chunks, one marching-cubes pass.  It neither
+        reads nor refreshes the latent-reuse snapshot, so it drops it."""
+        self._mesh_cache = None
+        self._mesh_cache_key = None
         vmap, cfg = self.map, self.map.cfg
         state = vmap.state
         if bool(state.overflow):

@@ -5,6 +5,11 @@ depth cut -> track -> every ``integrate_interval`` frames transform the
 processed cloud by the pose and integrate it -> every
 ``meshing_interval`` frames re-mesh -> a final full-quality mesh.  Writes
 the same ``trajectory.txt``, ``mesh.ply``, ``map.npz`` and ``stats.json``.
+
+Mesh samples are decoded in f32 for every ``mesh_decode_precision``.  The
+JAX package's ``default`` is a one-pass bf16 decode, so the port's mesh is
+the more exact one there; the key is read and otherwise ignored.
+``mesh_reuse_latent_eps`` > 0 turns on the mesher's latent-reuse gate.
 """
 
 from __future__ import annotations
@@ -32,14 +37,13 @@ class FusionPipeline:
                 raise NotImplementedError(f"{name}: true is not ported yet")
         if int(getattr(args, "frames_per_call", 1)) != 1:
             raise NotImplementedError("frames_per_call > 1 is not ported yet")
-        if float(getattr(args, "mesh_reuse_latent_eps", 0.0)) > 0.0:
-            raise NotImplementedError("mesh_reuse_latent_eps > 0 is not ported yet")
         model.to(self.device)
         self.map = SparseVoxelMap(model, args.mapping, args.model.code_length,
                                   self.device)
         self.mesher = Mesher(self.map, max_n_triangles=int(
             getattr(args, "max_n_triangles", 4e6)),
-            mesh_batch_budget=int(getattr(args, "mesh_batch_budget", 4096)))
+            mesh_batch_budget=int(getattr(args, "mesh_batch_budget", 4096)),
+            reuse_latent_eps=float(getattr(args, "mesh_reuse_latent_eps", 0.0)))
         budget = point_budget or int(getattr(args.mapping, "points_capacity", 16384))
         self.tracker = SDFTracker(self.map, args.tracking, point_budget=budget)
         self.timer = StageTimer()
@@ -101,6 +105,8 @@ class FusionPipeline:
             if not np.isnan(err):
                 results["mesh_abs_sdf"] = err
         results["n_triangles"] = int(len(self.mesher.current_mesh()))
+        if self.mesher.reuse_latent_eps > 0.0:
+            results["mesh_reuse"] = self.mesher.reuse_stats()
         if output_dir is not None:
             output_dir = Path(output_dir)
             output_dir.mkdir(parents=True, exist_ok=True)

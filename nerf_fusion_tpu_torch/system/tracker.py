@@ -55,6 +55,9 @@ class TrackerConfig(NamedTuple):
     motion_weight: float
     rgb_stride: int
     scale_level_intrinsics: bool
+    # sparse photometric term: top-k gradient pixels per used pyramid level
+    # (0 = dense); selected once per frame, gathered at k rows per GN step
+    rgb_pixel_budget: int = 0
     outlier_radius: float = 0.05
     outlier_min_nb: int = 16
     normal_radius: float = 0.1
@@ -69,9 +72,6 @@ class TrackerConfig(NamedTuple):
         sdf, rgb = as_dict(args.sdf), as_dict(args.rgb)
         pre = as_dict(getattr(args, "preprocess", {}) or {})
         motion = as_dict(getattr(args, "motion", {}) or {})
-        if int(rgb.get("pixel_budget", 0)) > 0:
-            raise NotImplementedError(
-                "rgb.pixel_budget > 0 (sparse photometric term) is not ported yet")
         if not bool(pre.get("box_filter_exact", True)):
             raise NotImplementedError(
                 "preprocess.box_filter_exact: false (hash box filter) is not ported yet")
@@ -89,6 +89,7 @@ class TrackerConfig(NamedTuple):
             max_depth_delta=float(rgb.get("max_depth_delta", 0.2)),
             rgb_stride=int(rgb.get("stride", 1)),
             scale_level_intrinsics=bool(rgb.get("scale_intrinsics", False)),
+            rgb_pixel_budget=int(rgb.get("pixel_budget", 0)),
             motion_weight=float(motion.get("weight", 1.0)),
             outlier_radius=float(pre.get("outlier_radius", 0.05)),
             outlier_min_nb=int(pre.get("outlier_min_nb", 16)),
@@ -137,16 +138,25 @@ def _intrinsics(fx, fy, cx, cy, device):
     return K, Kinv
 
 
-def _rgb_Hg(tcfg: TrackerConfig, level_data, fx, fy, cx, cy, dR, dt, rgb_weight):
-    """Photometric term at one pyramid level."""
+def _rgb_Hg(tcfg: TrackerConfig, level_data, fx, fy, cx, cy, dR, dt, rgb_weight,
+            sparse=None):
+    """Photometric term at one pyramid level.
+
+    ``sparse``: optional (prev_rows (H*W, 2), W, H, pix) from the
+    once-per-frame pixel selection; replaces the dense warp."""
     K, Kinv = _intrinsics(fx, fy, cx, cy, dR.device)
     krkinv = K @ dR @ Kinv
     kt = K @ dt
-    prev_i, prev_d, cur_i, cur_d, cur_g = level_data
-    f, J, ok = imgproc.rgb_odometry(prev_i, prev_d, cur_i, cur_d, cur_g,
-                                    fx, fy, cx, cy, krkinv, kt,
-                                    tcfg.min_grad_scale, tcfg.max_depth_delta,
-                                    stride=tcfg.rgb_stride)
+    if sparse is not None:
+        prev_rows, W, H_, pix = sparse
+        f, J, ok = imgproc.rgb_odometry_sparse(prev_rows, W, H_, pix, fx, fy, cx, cy,
+                                               krkinv, kt, tcfg.max_depth_delta)
+    else:
+        prev_i, prev_d, cur_i, cur_d, cur_g = level_data
+        f, J, ok = imgproc.rgb_odometry(prev_i, prev_d, cur_i, cur_d, cur_g,
+                                        fx, fy, cx, cy, krkinv, kt,
+                                        tcfg.min_grad_scale, tcfg.max_depth_delta,
+                                        stride=tcfg.rgb_stride)
     J = -J  # the warp Jacobian is d/d(-xi)
     m = ok.to(f.dtype)
     w = _robust_weight(f, tcfg.rgb_robust_kernel, tcfg.rgb_robust_k) * m
@@ -171,6 +181,21 @@ def track_gauss_newton(map_state, map_cfg, decoder, tcfg: TrackerConfig,
                        init_dR, init_dt, fx, fy, cx, cy, rgb_weight):
     """The staged GN schedule; returns (dR, dt, iters_used [G] host ints)."""
 
+    # Sparse photometric term: the pixel selection and the packed previous
+    # frame, once per frame for each pyramid level that a group uses.
+    sparse_levels = {}
+    if tcfg.rgb_pixel_budget > 0:
+        used = {int(t[1]) if len(t) > 1 else 0
+                for _, terms in tcfg.iter_config for t in terms if t[0] == "rgb"}
+        for lev in sorted(used):
+            pix = imgproc.select_photometric_pixels(
+                cur_pyr.intensity[lev], cur_pyr.depth[lev], cur_pyr.gradient[lev],
+                tcfg.rgb_pixel_budget, tcfg.min_grad_scale, stride=tcfg.rgb_stride)
+            Hl, Wl = cur_pyr.intensity[lev].shape
+            prev_rows = torch.stack([prev_pyr.intensity[lev].reshape(-1),
+                                     prev_pyr.depth[lev].reshape(-1)], dim=-1)
+            sparse_levels[lev] = (prev_rows, Wl, Hl, pix)
+
     def build_Hg(terms, dR, dt):
         H = torch.zeros((6, 6), dtype=torch.float32, device=dR.device)
         g = torch.zeros(6, dtype=torch.float32, device=dR.device)
@@ -186,7 +211,8 @@ def track_gauss_newton(map_state, map_cfg, decoder, tcfg: TrackerConfig,
                               cur_pyr.intensity[lev], cur_pyr.depth[lev],
                               cur_pyr.gradient[lev])
                 Ht, gt, et = _rgb_Hg(tcfg, level_data, fx * s, fy * s,
-                                     cx * s, cy * s, dR, dt, rgb_weight)
+                                     cx * s, cy * s, dR, dt, rgb_weight,
+                                     sparse=sparse_levels.get(lev))
             elif term[0] == "motion":
                 Ht, gt, et = _motion_Hg(tcfg, dR, dt)
             else:

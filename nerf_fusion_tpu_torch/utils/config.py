@@ -107,9 +107,15 @@ class ArgumentParserX(argparse.ArgumentParser):
                     continue
         _args = super().parse_args(args, namespace)
         if _args.exec is not None:
-            for cmd in _args.exec.split(";"):
-                exec("_args." + cmd.strip())  # noqa: S102 - explicit user-requested override hook
+            apply_exec(_args, _args.exec)
         return _args
+
+
+def apply_exec(args: argparse.Namespace, statements: str):
+    """The ``--exec`` hook: runs each ``;``-separated statement as
+    ``args.<statement>``, e.g. ``tracking['rgb']['pixel_budget']=24576``."""
+    for cmd in statements.split(";"):
+        exec("args." + cmd.strip(), {"args": args})  # noqa: S102 - explicit user-requested override hook
 
 
 def init_seed(seed: int = 0):

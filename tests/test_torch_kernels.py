@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from nerf_fusion_tpu_torch.models.io import load_model
-from nerf_fusion_tpu_torch.ops import cuda_build, mlp, stencil
+from nerf_fusion_tpu_torch.ops import cuda_build, gather, imgproc, mlp, stencil
 
 CKPT = Path(__file__).resolve().parent.parent / "ckpt/default/hyper.json"
 
@@ -118,6 +118,65 @@ def test_stencil_kernels_match_plain(cuda_device, h):
     m = valid & (cr >= 6)
     if m.any():
         assert ((n * nr).sum(0)[m].abs() > 0.999).float().mean() >= 0.99
+
+
+def _nan_equal(a, b):
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 2, 4])
+def test_row_gather_kernel_matches_plain(cuda_device, c):
+    """Bit-exact, clip mode, NaN rows passed through; one launch counted."""
+    g = torch.Generator().manual_seed(c)
+    n, m = 5003, 20011
+    rows = torch.randn((n,) if c == 1 else (n, c), generator=g)
+    rows[torch.randint(0, n, (9,), generator=g)] = float("nan")
+    idx = torch.randint(-100, n + 100, (m,), generator=g, dtype=torch.int32)
+    rows, idx = rows.to(cuda_device), idx.to(cuda_device)
+    n0, c0 = gather.row_gather.launches, gather.row_gather.launches_by_c[c]
+    out = gather.row_gather(rows, idx)
+    assert gather.row_gather.launches == n0 + 1
+    assert gather.row_gather.launches_by_c[c] == c0 + 1
+    assert _nan_equal(out, gather.row_gather_plain(rows, idx))
+    if c > 1:
+        shifted = rows.reshape(-1)[1:1 + (n - 1) * c].view(n - 1, c)   # 4 bytes off
+        with pytest.raises(ValueError, match="aligned"):
+            gather.row_gather(shifted, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 257, 3200, 5120])
+def test_lane_gather_kernel_matches_plain(cuda_device, b):
+    """take_along_axis: a negative index wraps once, >= B or < -B is NaN."""
+    g = torch.Generator().manual_seed(b)
+    h = 37
+    src = torch.randn(h, b, generator=g)
+    idx = torch.randint(-b - 3, b + 3, (h, b), generator=g, dtype=torch.int32)
+    src, idx = src.to(cuda_device), idx.to(cuda_device)
+    n0 = gather.lane_gather.launches
+    out = gather.lane_gather(src, idx)
+    assert gather.lane_gather.launches == n0 + 1
+    assert _nan_equal(out, gather.lane_gather_plain(src, idx))
+
+
+@pytest.mark.cuda
+def test_selection_on_card_matches_cpu(cuda_device):
+    """The sparse term's pixel selection on the card picks the pixels the
+    CPU picks from the same planes (stable sort: ties lowest index first)."""
+    g = torch.Generator().manual_seed(0)
+    h, w = 240, 320
+    inten = torch.rand(h, w, generator=g)
+    depth = 1.0 + torch.rand(h, w, generator=g)
+    depth[torch.rand(h, w, generator=g) < 0.1] = float("nan")
+    grad = torch.where(torch.rand(2, h, w, generator=g) < 0.2,
+                       torch.randn(2, h, w, generator=g), torch.zeros(2, h, w))
+    cpu = imgproc.select_photometric_pixels(inten, depth, grad, 6144, 0.0, stride=2)
+    card = imgproc.select_photometric_pixels(inten.to(cuda_device), depth.to(cuda_device),
+                                             grad.to(cuda_device), 6144, 0.0, stride=2)
+    for a, b in zip(cpu, card):
+        assert _nan_equal(a, b.cpu()) if a.dtype.is_floating_point else torch.equal(a, b.cpu())
 
 
 @pytest.mark.cuda

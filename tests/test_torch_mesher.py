@@ -3,7 +3,10 @@
 Both packages mesh the same map state (a 160x120 keyframe integrated by
 the JAX package, copied into the port).  Same triangle count, same order,
 vertices within 1e-5 m: the decoder samples differ by f32 rounding only
-(~1e-6), which moves a vertex by ~1e-7 of a voxel.
+(~1e-6), which moves a vertex by ~1e-7 of a voxel.  The latent-reuse gate
+is held to JAX with eps > 0 and batches that are never truncated (the
+JAX gate is known to leave stale seams when eps > 0 meets a truncated
+batch, so that case is no oracle).
 """
 
 from pathlib import Path
@@ -36,15 +39,9 @@ def _t(a):
     return torch.tensor(np.asarray(a))
 
 
-@pytest.fixture(scope="module")
-def maps():
-    jm, _ = jax_load_model(CKPT, 300)
-    tm, _ = load_model(CKPT, 300)
-    margs = dict_to_args(MAP_ARGS)
-    jv = jmap.SparseVoxelMap(jm, margs, 29)
-    tv = tmap.SparseVoxelMap(tm, margs, 29, "cpu")
-    seq = SyntheticSequence(n_frames=3, width=160, height=120)
-    for i in (0, 2):
+def _integrate(jv, tv, seq, frames):
+    """Integrates frames in the JAX map and copies its state to the port."""
+    for i in frames:
         f = seq.render_frame(i)
         c = f.calib
         pre = jax_preprocess(jnp.asarray(f.rgb), jnp.asarray(f.depth), c.fx, c.fy, c.cx,
@@ -53,6 +50,21 @@ def maps():
         jv.integrate_keyframe(pre.points, pre.normals, valid=pre.mask, pose=f.gt_pose)
     tv.state = tmap.MapState(*(_t(a) for a in jv.state))
     tv._updated_dev = _t(jv._updated_dev)
+
+
+def _fresh_maps(n_frames=3):
+    jm, _ = jax_load_model(CKPT, 300)
+    tm, _ = load_model(CKPT, 300)
+    margs = dict_to_args(MAP_ARGS)
+    jv = jmap.SparseVoxelMap(jm, margs, 29)
+    tv = tmap.SparseVoxelMap(tm, margs, 29, "cpu")
+    return jv, tv, SyntheticSequence(n_frames=n_frames, width=160, height=120)
+
+
+@pytest.fixture(scope="module")
+def maps():
+    jv, tv, seq = _fresh_maps()
+    _integrate(jv, tv, seq, (0, 2))
     return jv, tv
 
 
@@ -149,3 +161,78 @@ def test_marching_cubes_sphere_field_matches_jax():
     n = int(jres.n_triangles)
     assert n > 100
     _same_triangles(jres, tres, n)
+
+
+def _canon(m):
+    flat = np.asarray(m).reshape(len(m), -1)
+    return flat[np.lexsort(flat.T[::-1])]
+
+
+def test_mesh_reuse_latent_eps_skips_and_matches():
+    """Mirrors the JAX package's gate test: after re-integrating the same
+    cloud the count-weighted mean is unchanged, so the gate skips every
+    re-marked voxel (the dispatched batch keeps no row) and the cached mesh
+    stays bitwise; the result equals an eps = 0 mesher's over the same
+    integrations.  The chunked re-mesh and a changed (r, max_std) drop the
+    snapshot."""
+    tm, _ = load_model(CKPT, 300)
+    args = dict_to_args(dict(
+        bound_min=[0.0, 0.0, 0.0], bound_max=[1.0, 1.0, 1.0], voxel_size=0.1,
+        prune_min_vox_obs=4, ignore_count_th=0.0, encoder_count_th=1e9,
+        latent_capacity=2048, alloc_capacity=512))
+    rng = np.random.RandomState(0)
+    n = 6000
+    pts = np.stack([rng.uniform(0.3, 0.7, n), rng.uniform(0.3, 0.7, n),
+                    np.full(n, 0.55) + rng.randn(n) * 0.002], axis=1).astype(np.float32)
+    nrm = np.tile(np.asarray([[0.0, 0.0, 1.0]], np.float32), (n, 1))
+
+    vmap = tmap.SparseVoxelMap(tm, args, 29, "cpu")
+    mesher = tmesher.Mesher(vmap, max_n_triangles=1 << 15, reuse_latent_eps=1e-4)
+    vmap.integrate_keyframe(pts, nrm)
+    mesh1 = mesher.extract(4, max_std=0.3).copy()
+    assert len(mesh1) > 50
+    vmap.integrate_keyframe(pts, nrm)
+    mesher._dispatch_fused(4, 0.3)
+    assert mesher._pending and int(mesher._pending[-1].keep.sum()) == 0
+    assert np.array_equal(mesher.current_mesh(), mesh1)
+    stats = mesher.reuse_stats()
+    assert stats["skipped"] > 0 and stats["skipped"] <= stats["updated"]
+
+    vmap2 = tmap.SparseVoxelMap(tm, args, 29, "cpu")
+    mesher2 = tmesher.Mesher(vmap2, max_n_triangles=1 << 15)     # gate off
+    vmap2.integrate_keyframe(pts, nrm)
+    vmap2.integrate_keyframe(pts, nrm)
+    assert np.allclose(_canon(mesh1), _canon(mesher2.extract(4, max_std=0.3)), atol=1e-5)
+    assert mesher2._mesh_cache is None
+
+    key = mesher._mesh_cache_key
+    mesher.extract(4, max_std=0.3, no_cache=True)
+    assert mesher._mesh_cache is None
+    vmap.updated_slots[:] = True
+    mesher._dispatch_fused(4, 0.2)
+    assert mesher._mesh_cache_key == (4, 0.2) != key
+    assert mesher.reuse_stats()["updated"] > stats["updated"]
+
+
+def test_reuse_gate_matches_jax():
+    """Both meshers with the gate on (eps > 0, batches never truncated)
+    over the same map states: the same voxels are skipped and the meshes
+    agree within the vertex tolerance after every extraction."""
+    eps = 0.01
+    jv, tv, seq = _fresh_maps(n_frames=7)
+    jme = jmesher.Mesher(jv, max_n_triangles=131072, reuse_latent_eps=eps)
+    tme = tmesher.Mesher(tv, max_n_triangles=131072, reuse_latent_eps=eps)
+    for frames in ((0, 2), (4,), (6,)):
+        _integrate(jv, tv, seq, frames)
+        jme._dispatch_fused(4, 0.15, False)
+        tme._dispatch_fused(4, 0.15)
+        jp, tp = jme._pending[-1], tme._pending[-1]
+        assert int(tp.n_leftover) == int(jp.n_leftover) == 0
+        assert np.array_equal(tp.keep.numpy(), np.asarray(jp.keep))
+        assert np.array_equal(tp.mesh_ids.numpy(), np.asarray(jp.mesh_ids))
+        jmesh, tmesh = jme.current_mesh(), tme.current_mesh()
+        assert tmesh.shape == jmesh.shape and len(tmesh) > 500
+        assert np.abs(tmesh - jmesh).max() <= VERT_TOL
+        assert np.array_equal(tme.vertices_flatten_id, jme.vertices_flatten_id)
+    stats = tme.reuse_stats()
+    assert 0 < stats["skipped"] < stats["updated"]

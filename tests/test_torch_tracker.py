@@ -6,6 +6,8 @@ frontend, and a map holding frame 0 integrated at its ground-truth pose
 trackers.  H, g and energy of the SDF and photometric terms agree to
 rtol 1e-4 (f32 sums of ~1e4 residuals in another order); the staged GN
 schedule gives the same iteration counts and the same pose to 1e-4.
+The sparse photometric term's pixel selection gives JAX's pixels exactly,
+in JAX's order (a selection rounds nothing).
 """
 
 from pathlib import Path
@@ -17,11 +19,13 @@ import torch
 
 from nerf_fusion_tpu.data.synth import SyntheticSequence
 from nerf_fusion_tpu.models.io import load_model as jax_load_model
+from nerf_fusion_tpu.ops import imgproc as JI
 from nerf_fusion_tpu.system import map as jmap
 from nerf_fusion_tpu.system import tracker as JT
 from nerf_fusion_tpu.system.frontend import preprocess_frame as jax_preprocess
 from nerf_fusion_tpu.utils import se3_jax as sj
 from nerf_fusion_tpu_torch.models.io import load_model
+from nerf_fusion_tpu_torch.ops import imgproc as TI
 from nerf_fusion_tpu_torch.system import map as tmap
 from nerf_fusion_tpu_torch.system import tracker as TT
 from nerf_fusion_tpu_torch.system.frontend import Pyramid
@@ -201,3 +205,147 @@ def test_degenerate_frame_keeps_pose_finite():
     good = seq.render_frame(2)
     R, t = tr.track_camera(good.rgb, good.depth, good.calib)
     assert torch.isfinite(R).all() and torch.isfinite(t).all()
+
+
+def _same(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape and a.dtype == b.dtype
+    assert np.array_equal(np.isnan(a), np.isnan(b))
+    assert np.array_equal(a[~np.isnan(a)], b[~np.isnan(b)])
+
+
+def _select_both(level_planes, k, min_grad, stride):
+    j = JI.select_photometric_pixels(*level_planes, k, min_grad, stride=stride)
+    t = TI.select_photometric_pixels(*(_t(a) for a in level_planes), k, min_grad,
+                                     stride=stride)
+    return j, t
+
+
+@pytest.mark.parametrize("lev,stride,k", [(0, 2, 1500), (0, 1, 4000), (1, 2, 1500),
+                                          (2, 2, 1500), (1, 1, 10 ** 6)])
+def test_select_photometric_pixels_matches_jax(setup, lev, stride, k):
+    """Same pixels in the same order and the same gathered values; levels
+    whose stride grid is smaller than k take every grid pixel."""
+    p1 = setup["p1"].pyramid
+    j, t = _select_both((p1.intensity[lev], p1.depth[lev], p1.gradient[lev]),
+                        k, 0.0, stride)
+    for a, b in zip(j, t):
+        _same(b.numpy(), a)
+    assert 0 < int(t[6].sum()) <= len(t[6])
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_selection_ties_taken_lowest_index_first(stride):
+    """A plane of mostly equal scores: ``min_grad_scale = 0`` admits every
+    flat pixel at score 0, and k cuts through the ties.  ``lax.top_k``
+    takes equal scores lowest index first; so must the port."""
+    rng = np.random.default_rng(3)
+    h, w = 48, 64
+    inten = rng.random((h, w)).astype(np.float32)
+    depth = (1.0 + rng.random((h, w))).astype(np.float32)
+    depth[rng.random((h, w)) < 0.1] = np.nan
+    g = np.zeros((2, h, w), np.float32)
+    hot = rng.random((h, w)) < 0.05
+    g[:, hot] = rng.normal(size=(2, int(hot.sum()))).astype(np.float32)
+    g[:, 0, :] = g[:, -1, :] = g[:, :, 0] = g[:, :, -1] = np.nan
+    k = 1000 // stride ** 2
+    j, t = _select_both((inten, depth, g), k, 0.0, stride)
+    for a, b in zip(j, t):
+        _same(b.numpy(), a)
+    gx, gy = np.asarray(j[4]), np.asarray(j[5])
+    assert (gx * gx + gy * gy == 0).sum() > k // 2      # the cut lies among the ties
+
+
+def _level_args(s, lev):
+    c = s["c"]
+    sc = 0.5 ** lev
+    p0, p1 = s["p0"].pyramid, s["p1"].pyramid
+    ld = (p0.intensity[lev], p0.depth[lev], p1.intensity[lev], p1.depth[lev],
+          p1.gradient[lev])
+    return ld, (c.fx * sc, c.fy * sc, c.cx * sc, c.cy * sc)
+
+
+@pytest.mark.parametrize("lev", [0, 1, 2])
+def test_sparse_rgb_term_matches_jax(setup, lev):
+    """``rgb_odometry_sparse`` on the same selection, and the sparse
+    ``_rgb_Hg``: residuals and Jacobians to 1e-5 relative (elementwise f32
+    in another fusion order), the validity mask exactly, H/g/energy to
+    rtol 1e-4 as for the dense term."""
+    s = setup
+    (jR, jt), (tR, tt) = _delta(1)
+    ld, (fx, fy, cx, cy) = _level_args(s, lev)
+    jpix, tpix = _select_both(ld[2:], 1500, 0.0, 2)
+    Hl, Wl = ld[2].shape
+    jrows = jnp.stack([ld[0].reshape(-1), ld[1].reshape(-1)], -1)
+    trows = _t(jrows)
+    jK = jnp.asarray([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]])
+    jKinv = jnp.linalg.inv(jK)
+    krkinv, kt = jK @ jR @ jKinv, jK @ jt
+    jf, jJ, jok = JI.rgb_odometry_sparse(jrows, Wl, Hl, jpix, fx, fy, cx, cy, krkinv, kt,
+                                         0.2)
+    tf, tJ, tok = TI.rgb_odometry_sparse(trows, Wl, Hl, tpix, fx, fy, cx, cy, _t(krkinv),
+                                         _t(kt), 0.2)
+    assert np.array_equal(tok.numpy(), np.asarray(jok)) and int(tok.sum()) > 100
+    for a, b in ((jf, tf), (jJ, tJ)):
+        a = np.asarray(a)
+        assert np.abs(a - b.numpy()).max() <= 1e-5 * np.abs(a).max()
+    jres = JT._rgb_Hg(s["jtc"], None, fx, fy, cx, cy, jR, jt, jnp.asarray(500.0),
+                      sparse=(jrows, Wl, Hl, jpix))
+    tres = TT._rgb_Hg(s["ttc"], None, fx, fy, cx, cy, tR, tt, 500.0,
+                      sparse=(trows, Wl, Hl, tpix))
+    _assert_Hg(jres, tres)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_sparse_equals_dense_when_budget_covers(setup, stride):
+    """A budget that covers every grid pixel selects exactly the dense
+    pixel set: H, g and energy agree (rtol 2e-4, atol 1e-5: the same sums
+    in another order).  A real budget (a quarter of the grid) still gives
+    a GN step pointing the same way (cos > 0.95)."""
+    s = setup
+    _, (tR, tt) = _delta(0)
+    ld, (fx, fy, cx, cy) = _level_args(s, 0)
+    ld = tuple(_t(a) for a in ld)
+    targs = dict_to_args({**TRACK_ARGS, "rgb": {**TRACK_ARGS["rgb"], "stride": stride}})
+    tcfg = TT.TrackerConfig.from_args(targs)
+    Hd, gd, ed = TT._rgb_Hg(tcfg, ld, fx, fy, cx, cy, tR, tt, 500.0)
+    Hl, Wl = ld[2].shape
+    rows = torch.stack([ld[0].reshape(-1), ld[1].reshape(-1)], -1)
+    n_grid = (Hl // stride) * (Wl // stride)
+    res = {}
+    for k in (n_grid, n_grid // 4):
+        pix = TI.select_photometric_pixels(ld[2], ld[3], ld[4], k, 0.0, stride=stride)
+        res[k] = TT._rgb_Hg(tcfg, None, fx, fy, cx, cy, tR, tt, 500.0,
+                            sparse=(rows, Wl, Hl, pix))
+    Hs, gs, es = res[n_grid]
+    np.testing.assert_allclose(Hs.numpy(), Hd.numpy(), rtol=2e-4, atol=1e-5)
+    np.testing.assert_allclose(gs.numpy(), gd.numpy(), rtol=2e-4, atol=1e-5)
+    np.testing.assert_allclose(float(es), float(ed), rtol=2e-4)
+    Hq, gq, _ = res[n_grid // 4]
+    sd = np.linalg.solve(Hd.double().numpy() + 1e-9 * np.eye(6), -gd.double().numpy())
+    sq = np.linalg.solve(Hq.double().numpy() + 1e-9 * np.eye(6), -gq.double().numpy())
+    assert sd @ sq / (np.linalg.norm(sd) * np.linalg.norm(sq) + 1e-12) > 0.95
+
+
+def test_gauss_newton_sparse_matches_jax(setup):
+    """The staged schedule with ``rgb.pixel_budget``: the selection runs
+    once per frame per level; same iteration counts, pose within 1e-4."""
+    s = setup
+    c = s["c"]
+    k = 2048
+    targs = dict_to_args({**TRACK_ARGS, "rgb": {**TRACK_ARGS["rgb"], "pixel_budget": 1500}})
+    jtc, ttc = JT.TrackerConfig.from_args(targs), TT.TrackerConfig.from_args(targs)
+    assert jtc.rgb_pixel_budget == ttc.rgb_pixel_budget == 1500
+    pts, mask = s["p1"].points[:k], s["p1"].mask[:k]
+    jR, jt, jiters = JT.track_gauss_newton(
+        s["js"], s["jcfg"], s["jm"].decoder_params, s["jm"].decoder_config, jtc,
+        s["p0"].pyramid, s["p1"].pyramid, pts, mask, jnp.asarray(s["R0"]),
+        jnp.asarray(s["t0"]), jnp.eye(3), jnp.zeros(3), c.fx, c.fy, c.cx, c.cy,
+        jnp.asarray(500.0))
+    tR, tt, titers = TT.track_gauss_newton(
+        s["ts"], s["tcfg"], s["tm"].decoder, ttc, _tpyr(s["p0"].pyramid),
+        _tpyr(s["p1"].pyramid), _t(pts), _t(mask), _t(s["R0"]), _t(s["t0"]),
+        torch.eye(3), torch.zeros(3), c.fx, c.fy, c.cx, c.cy, 500.0)
+    assert list(np.asarray(jiters)) == titers
+    assert np.abs(tR.numpy() - np.asarray(jR)).max() < 1e-4
+    assert np.abs(tt.numpy() - np.asarray(jt)).max() < 1e-4
