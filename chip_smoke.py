@@ -7,8 +7,11 @@
    ``nvcc`` per source, in parallel) and prints the build time.
 2. Holds every kernel against its plain PyTorch version on the card at
    the shapes of the paths below and times both, and the one PyTorch call
-   that computes the same function where there is one.  The gathers are
-   held bit-exact, NaN positions included.
+   that computes the same function where there is one: device time from
+   a profiler trace (``ms``, ``plain_ms``, ``library_ms``), and the
+   kernel's call time between CUDA events (``call_ms``), which includes
+   the host's cost of issuing it.  The gathers are held bit-exact, NaN
+   positions included.
 3. Runs three paths, each with the launch counters zeroed just before:
    (a) the dense fusion loop through its entry point
        (``nerf_fusion_tpu_torch.main configs/fusion-synth.yaml``, 640x480,
@@ -50,22 +53,6 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def bound_ms(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -88,12 +75,15 @@ def gather_case(fn, plain, args, library, nbytes, shape):
     PyTorch call that computes the same function; bytes-bound."""
     import torch
 
+    from nerf_fusion_tpu_torch.utils.timing import call_ms, device_ms
+
     out, ref = fn(*args), plain(*args)
     torch.cuda.synchronize()
     return dict(err=nan_err(out, ref), shape=shape,
-                ms=time_ms(lambda: fn(*args), 100),
-                plain_ms=time_ms(lambda: plain(*args), 100),
-                library_ms=time_ms(library, 100), bound=bound_ms(0.0, nbytes))
+                ms=device_ms(lambda: fn(*args), 100),
+                call_ms=call_ms(lambda: fn(*args), 100),
+                plain_ms=device_ms(lambda: plain(*args), 100),
+                library_ms=device_ms(library, 100), bound=bound_ms(0.0, nbytes))
 
 
 def gather_phase(dev, fr_next):
@@ -172,23 +162,24 @@ def gather_phase(dev, fr_next):
              source="nerf_fusion_tpu_torch/csrc/gather.cu",
              replaces="tools/gather_exp3.py:88 (pallas_gather)",
              shape=dense["shape"] + " (dense warp, stride 2)",
-             ms=dense["ms"], plain_ms=dense["plain_ms"], bound=dense["bound"],
-             library_ms=dense["library_ms"], selection_matches_cpu=sel_match,
+             ms=dense["ms"], call_ms=dense["call_ms"], plain_ms=dense["plain_ms"],
+             bound=dense["bound"], library_ms=dense["library_ms"],
+             selection_matches_cpu=sel_match,
              cases=[dict(case=k, shape=v["shape"], max_abs_err=v["err"], ms=v["ms"],
-                         plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
-                         library_ms=v["library_ms"])
+                         call_ms=v["call_ms"], plain_ms=v["plain_ms"],
+                         bound_ms=v["bound"][0], library_ms=v["library_ms"])
                     for k, v in (("dense_warp", dense), ("probe", probe),
                                  ("selection_c4", select))]),
         dict(name="row_gather_c1", err=single["err"], tol=0.0,
              source="nerf_fusion_tpu_torch/csrc/gather.cu",
              replaces="tools/gather_exp3.py:115 (pallas_gather1)", shape=single["shape"],
-             ms=single["ms"], plain_ms=single["plain_ms"], bound=single["bound"],
-             library_ms=single["library_ms"]),
+             ms=single["ms"], call_ms=single["call_ms"], plain_ms=single["plain_ms"],
+             bound=single["bound"], library_ms=single["library_ms"]),
         dict(name="lane_gather", err=lane["err"], tol=0.0,
              source="nerf_fusion_tpu_torch/csrc/gather.cu",
              replaces="tools/gather_exp4.py:72 (lane_gather)", shape=lane["shape"],
-             ms=lane["ms"], plain_ms=lane["plain_ms"], bound=lane["bound"],
-             library_ms=lane["library_ms"]),
+             ms=lane["ms"], call_ms=lane["call_ms"], plain_ms=lane["plain_ms"],
+             bound=lane["bound"], library_ms=lane["library_ms"]),
     ]
     for k, v in (("probe", probe), ("selection_c4", select)):
         if not v["err"] <= 0.0:
@@ -206,6 +197,7 @@ def kernel_phase(dev):
     from nerf_fusion_tpu_torch.models.io import load_model
     from nerf_fusion_tpu_torch.ops import imgproc, mlp, stencil
     from nerf_fusion_tpu_torch.system.mesher import _sample_offsets
+    from nerf_fusion_tpu_torch.utils.timing import call_ms, device_ms
 
     model, _ = load_model(REPO / "ckpt/default/hyper.json", 300)
     model.to(dev)
@@ -227,8 +219,9 @@ def kernel_phase(dev):
         source="nerf_fusion_tpu_torch/csrc/mlp.cu",
         replaces="nerf_fusion_tpu/ops/pallas_mlp.py:98 (_decoder_pallas_call)",
         shape=f"({n}, 32) -> ({n}, 2)",
-        ms=time_ms(lambda: mlp.decoder_forward(x, dec.packed, dec.mats)),
-        plain_ms=time_ms(lambda: mlp.decoder_forward_plain(x, dec.mats)),
+        ms=device_ms(lambda: mlp.decoder_forward(x, dec.packed, dec.mats)),
+        call_ms=call_ms(lambda: mlp.decoder_forward(x, dec.packed, dec.mats)),
+        plain_ms=device_ms(lambda: mlp.decoder_forward_plain(x, dec.mats)),
         bound=bound_ms(2 * 49408 * n, n * (32 + 2) * 4 + 49890 * 4)))
 
     # decoder forward + input gradient: the tracker's GN point budget
@@ -247,8 +240,9 @@ def kernel_phase(dev):
         source="nerf_fusion_tpu_torch/csrc/mlp.cu",
         replaces="nerf_fusion_tpu/ops/pallas_mlp.py:98 (_decoder_pallas_call)",
         shape=f"({n}, 32) -> ({n}, 2) + ({n}, 3)",
-        ms=time_ms(lambda: mlp.decoder_forward_grad(xg, dec.packed, dec.mats)),
-        plain_ms=time_ms(lambda: mlp.decoder_forward_grad_plain(xg, dec.mats)),
+        ms=device_ms(lambda: mlp.decoder_forward_grad(xg, dec.packed, dec.mats)),
+        call_ms=call_ms(lambda: mlp.decoder_forward_grad(xg, dec.packed, dec.mats)),
+        plain_ms=device_ms(lambda: mlp.decoder_forward_grad_plain(xg, dec.mats)),
         bound=bound_ms(2 * (49408 + 3 * (128 * 128 + 128 * 96 + 96 * 128 + 128)) * n,
                        n * (32 + 2 + 3) * 4 + 49890 * 4)))
 
@@ -266,8 +260,9 @@ def kernel_phase(dev):
         source="nerf_fusion_tpu_torch/csrc/mlp.cu",
         replaces="nerf_fusion_tpu/ops/pallas_mlp.py:165 (_encoder_pallas_call)",
         shape=f"({n}, 6) -> ({n}, 29)",
-        ms=time_ms(lambda: mlp.encoder_forward(xe, enc.packed, enc.mats)),
-        plain_ms=time_ms(lambda: mlp.encoder_forward_plain(xe, enc.mats)),
+        ms=device_ms(lambda: mlp.encoder_forward(xe, enc.packed, enc.mats)),
+        call_ms=call_ms(lambda: mlp.encoder_forward(xe, enc.packed, enc.mats)),
+        plain_ms=device_ms(lambda: mlp.encoder_forward_plain(xe, enc.mats)),
         bound=bound_ms(2 * 26048 * n, n * (6 + 29) * 4 + 26429 * 4)))
 
     # stencils: the frontend's 320x240 point planes of a rendered frame
@@ -295,8 +290,9 @@ def kernel_phase(dev):
         replaces="nerf_fusion_tpu/ops/pallas_stencil.py:202 (_padded_call via "
                  "neighbor_count_pallas :238)",
         shape=f"(3, {H}, {W}) + ({H}, {W}) -> ({H}, {W})",
-        ms=time_ms(lambda: stencil.neighbor_count(pts0, valid, 0.05), 100),
-        plain_ms=time_ms(lambda: stencil.neighbor_count_plain(pts0, valid, 0.05)),
+        ms=device_ms(lambda: stencil.neighbor_count(pts0, valid, 0.05), 100),
+        call_ms=call_ms(lambda: stencil.neighbor_count(pts0, valid, 0.05), 100),
+        plain_ms=device_ms(lambda: stencil.neighbor_count_plain(pts0, valid, 0.05)),
         bound=bound_ms(n_valid * 49 * 8 + n_acc, px * (13 + 4))))
 
     gated = valid & (cref - 1.0 >= 16)
@@ -316,8 +312,9 @@ def kernel_phase(dev):
         replaces="nerf_fusion_tpu/ops/pallas_stencil.py:202 (_padded_call via "
                  "normals_stencil_pallas :218)",
         shape=f"(3, {H}, {W}) + ({H}, {W}) -> (3, {H}, {W}) + ({H}, {W})",
-        ms=time_ms(lambda: stencil.normals_stencil(pts0, gated, 0.1), 100),
-        plain_ms=time_ms(lambda: stencil.normals_stencil_plain(pts0, gated, 0.1)),
+        ms=device_ms(lambda: stencil.normals_stencil(pts0, gated, 0.1), 100),
+        call_ms=call_ms(lambda: stencil.normals_stencil(pts0, gated, 0.1), 100),
+        plain_ms=device_ms(lambda: stencil.normals_stencil_plain(pts0, gated, 0.1)),
         bound=bound_ms(n_valid * (49 * 8 + 100) + n_acc * 16, px * (13 + 16))))
 
     rows += gather_phase(dev, seq.render_frame(1))
@@ -326,8 +323,9 @@ def kernel_phase(dev):
                                    "count_err", "library_ms", "selection_matches_cpu")
                  if k in r}
         print(f"kernel {r['name']}: {r['shape']} max_abs_err {r['err']:.3e} {extra} "
-              f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-              f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})", flush=True)
+              f"kernel {r['ms']:.4f} ms on the device ({r['call_ms']:.4f} ms per call) "
+              f"plain {r['plain_ms']:.4f} ms bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]})", flush=True)
     for r in rows:
         if r["tol"] is not None and not r["err"] <= r["tol"]:
             fail(f"{r['name']} max abs err {r['err']} > {r['tol']}")
@@ -424,7 +422,7 @@ def probe_path():
 
     torch.cuda.synchronize()
     zero_launches()
-    res = gather_probe.main(["--reps", "50"])
+    res = gather_probe.main()
     torch.cuda.synchronize()
     launches = read_launches()
     print(f"probe path: launches {launches}", flush=True)
@@ -488,7 +486,7 @@ def main() -> int:
             "replaces": r["replaces"], "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": r["err"], "tolerance": r["tol"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r.get("library_ms"), "shape": r["shape"],
             **{k: r[k] for k in ("grad_err", "grad_tol", "grad_within_tol", "count_err",

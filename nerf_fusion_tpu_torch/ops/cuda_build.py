@@ -113,6 +113,20 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def on_cpu(what: str, *tensors) -> bool:
+    """True when the operands lie on the CPU (the wrapper takes its plain
+    version), False when they lie on one CUDA device (it launches its
+    kernel); raises for mixed devices or any other device."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{what}: operands on different devices")
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    return False
+
+
 def check(status: int, what: str):
     if status != 0:
         raise RuntimeError(f"CUDA kernel {what} failed to launch: "

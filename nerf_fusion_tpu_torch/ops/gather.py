@@ -12,9 +12,9 @@ Counterparts of the Pallas gathers of the JAX package's probes
     wraps once (-1 is the last lane); an index >= B or < -B gives NaN.
 
 A wrapper launches its kernel for a CUDA tensor (or raises) and takes the
-plain version beside it only for a CPU tensor.  Each wrapper counts its
-kernel launches in ``<wrapper>.launches``; ``row_gather.launches_by_c``
-splits the count by row width.
+plain version beside it only for a CPU tensor.  ``lane_gather.launches``
+counts its kernel launches, ``row_gather.launches_by_c`` its launches per
+row width.
 """
 
 from __future__ import annotations
@@ -40,17 +40,6 @@ def lane_gather_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, got, torch.full_like(got, float("nan")))
 
 
-def _on_cpu(tensors, what: str) -> bool:
-    dev = tensors[0].device
-    if any(t.device != dev for t in tensors):
-        raise ValueError(f"{what}: operands on different devices")
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {dev}")
-    return False
-
-
 def row_gather(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Clip-mode row gather: ``rows[clamp(idx, 0, N-1)]``."""
     if rows.dtype != torch.float32 or rows.dim() not in (1, 2):
@@ -67,7 +56,7 @@ def row_gather(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError("row_gather: empty source")
     if max(N, M) >= 2 ** 31:
         raise ValueError("row_gather: more than 2^31 - 1 rows or indices")
-    if _on_cpu((rows, idx), "row_gather"):
+    if cuda_build.on_cpu("row_gather", rows, idx):
         return row_gather_plain(rows, idx)
     rows, idx = rows.contiguous(), idx.contiguous()
     out = torch.empty((M,) + tuple(rows.shape[1:]), dtype=torch.float32,
@@ -81,7 +70,6 @@ def row_gather(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     cuda_build.check(lib.row_gather(rows.data_ptr(), N, C, idx.data_ptr(), M,
                                     out.data_ptr(), cuda_build.stream_ptr(rows.device)),
                      "row_gather")
-    row_gather.launches += 1
     row_gather.launches_by_c[C] += 1
     return out
 
@@ -93,7 +81,7 @@ def lane_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                          f"{tuple(src.shape)} {src.dtype}")
     if idx.dtype != torch.int32 or tuple(idx.shape) != tuple(src.shape):
         raise ValueError("lane_gather: idx must be int32 of the shape of src")
-    if _on_cpu((src, idx), "lane_gather"):
+    if cuda_build.on_cpu("lane_gather", src, idx):
         return lane_gather_plain(src, idx)
     H, B = src.shape
     if B > LANE_MAX:
@@ -112,7 +100,6 @@ def lane_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def reset_launches():
-    row_gather.launches = 0
     row_gather.launches_by_c = dict.fromkeys(ROW_WIDTHS, 0)
     lane_gather.launches = 0
 

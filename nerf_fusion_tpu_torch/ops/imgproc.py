@@ -241,7 +241,13 @@ def box_filter_points_exact(pts: torch.Tensor, normals: torch.Tensor,
     return out_p, out_n, acc[:, 6:9] / c, mask, drop_frac
 
 
-def rgb_odometry(prev_intensity, prev_depth, cur_intensity, cur_depth,
+def intensity_depth_rows(intensity, depth):
+    """(H, W) intensity and depth planes -> (H*W, 2) rows [intensity, depth],
+    the source of the photometric warp's row gather."""
+    return torch.stack([intensity.reshape(-1), depth.reshape(-1)], dim=-1)
+
+
+def rgb_odometry(prev_rows, cur_intensity, cur_depth,
                  cur_dIdxy, fx, fy, cx, cy, krkinv, kt,
                  min_grad_scale: float, max_depth_delta: float,
                  stride: int = 1):
@@ -252,6 +258,8 @@ def rgb_odometry(prev_intensity, prev_depth, cur_intensity, cur_depth,
     gather.  With ``stride`` > 1 the current frame is evaluated at every
     stride-th pixel: the keep mask is computed at full resolution, the
     planes are zeroed outside it and sliced, and ``d1 > 0`` recovers it.
+    :param prev_rows: (H*W, 2) rows of the previous frame, from
+        :func:`intensity_depth_rows`.
     :param krkinv: (3, 3) K R K^-1; :param kt: (3,) K t.
     :return: (f (h, w), J (6, h, w), valid (h, w)) at the strided size.
     """
@@ -282,9 +290,7 @@ def rgb_odometry(prev_intensity, prev_depth, cur_intensity, cur_depth,
     v0 = torch.round((d1 * (krkinv[1, 0] * u + krkinv[1, 1] * v + krkinv[1, 2])
                       + kt[1]) / wz)
     inb, u0c, v0c, lin = _warp_index(u0, v0, W, H)
-    # one packed (H*W, 2) row gather of [intensity, depth]
-    rows = torch.stack([prev_intensity.reshape(-1), prev_depth.reshape(-1)], dim=-1)
-    got = gather.row_gather(rows, lin.reshape(-1))
+    got = gather.row_gather(prev_rows, lin.reshape(-1))
     i0 = got[:, 0].reshape(h, w)
     d0 = got[:, 1].reshape(h, w)
     ok = ok & inb & torch.isfinite(d0) & (d0 > 0.0) \
@@ -359,8 +365,8 @@ def rgb_odometry_sparse(prev_rows, W: int, H: int, pix, fx, fy, cx, cy,
     """Photometric residual + Jacobian at a selected pixel set: the math of
     ``rgb_odometry`` on (k,) vectors with one k-row gather.
 
-    :param prev_rows: (H*W, 2) f32 rows of [intensity, depth] of the
-        previous frame.
+    :param prev_rows: (H*W, 2) rows of the previous frame, from
+        :func:`intensity_depth_rows`.
     :param pix: output of :func:`select_photometric_pixels`.
     :return: (f (k,), J (6, k), ok (k,)).
     """

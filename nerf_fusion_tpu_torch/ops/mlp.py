@@ -146,18 +146,10 @@ def _check(x: torch.Tensor, width: int, packed: torch.Tensor, size: int, what: s
                          f"float32 ({size},) tensor on {x.device}")
 
 
-def _on_cpu(x: torch.Tensor, what: str) -> bool:
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {x.device}")
-    return False
-
-
 def decoder_forward(x: torch.Tensor, packed: torch.Tensor, mats) -> torch.Tensor:
     """Eval decoder (N, 32) -> (N, 2) [sdf, std]."""
     _check(x, DECODER_IN, packed, DECODER_PACKED, "decoder_forward")
-    if _on_cpu(x, "decoder_forward"):
+    if cuda_build.on_cpu("decoder_forward", x):
         return decoder_forward_plain(x, mats)
     out = torch.empty((x.shape[0], 2), dtype=torch.float32, device=x.device)
     lib = cuda_build.load("mlp")
@@ -171,7 +163,7 @@ def decoder_forward(x: torch.Tensor, packed: torch.Tensor, mats) -> torch.Tensor
 def decoder_forward_grad(x: torch.Tensor, packed: torch.Tensor, mats):
     """Eval decoder plus d sdf / d x[:, 29:32]: ((N, 2), (N, 3))."""
     _check(x, DECODER_IN, packed, DECODER_PACKED, "decoder_forward_grad")
-    if _on_cpu(x, "decoder_forward_grad"):
+    if cuda_build.on_cpu("decoder_forward_grad", x):
         return decoder_forward_grad_plain(x, mats)
     out = torch.empty((x.shape[0], 2), dtype=torch.float32, device=x.device)
     grad = torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device)
@@ -186,7 +178,7 @@ def decoder_forward_grad(x: torch.Tensor, packed: torch.Tensor, mats):
 def encoder_forward(x: torch.Tensor, packed: torch.Tensor, mats) -> torch.Tensor:
     """Eval cnp encoder (N, 6) -> (N, 29)."""
     _check(x, ENCODER_IN, packed, ENCODER_PACKED, "encoder_forward")
-    if _on_cpu(x, "encoder_forward"):
+    if cuda_build.on_cpu("encoder_forward", x):
         return encoder_forward_plain(x, mats)
     out = torch.empty((x.shape[0], ENCODER_OUT), dtype=torch.float32, device=x.device)
     lib = cuda_build.load("mlp")

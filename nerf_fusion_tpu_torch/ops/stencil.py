@@ -37,13 +37,7 @@ def _check(pts: torch.Tensor, valid: torch.Tensor, what: str) -> bool:
                          f"{tuple(pts.shape)} {pts.dtype}")
     if valid.dtype != torch.bool or tuple(valid.shape) != tuple(pts.shape[1:]):
         raise ValueError(f"{what}: valid must be a bool (H, W) mask")
-    if valid.device != pts.device:
-        raise ValueError(f"{what}: pts and valid on different devices")
-    if pts.device.type == "cpu":
-        return True
-    if pts.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {pts.device}")
-    return False
+    return cuda_build.on_cpu(what, pts, valid)
 
 
 def normals_stencil(pts: torch.Tensor, valid: torch.Tensor, radius: float = 0.1):

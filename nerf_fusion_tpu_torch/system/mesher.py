@@ -32,12 +32,10 @@ MESH_CHUNK = 512
 
 class MeshCache(NamedTuple):
     """The latent-reuse gate's state, updated in place by ``fused_extract``:
-    each slot's latent at its last meshing (row C is a sentinel), whether
-    that snapshot exists, and a device count of the updated voxels the gate
-    saw and skipped (the owner's, kept across snapshots)."""
+    each slot's latent at its last meshing (row C is a sentinel) and
+    whether that snapshot exists."""
     lat: torch.Tensor           # (C + 1, L) f32
     valid: torch.Tensor         # (C + 1,) bool
-    counts: torch.Tensor        # (2,) int64: updated, skipped
 
 
 class _Pending(NamedTuple):
@@ -76,14 +74,16 @@ def decode_cubes(decoder, latents_b: torch.Tensor, r: int):
 
 def fused_extract(state, updated_mask, cfg, decoder, r: int, mesh_budget: int,
                   tri_budget: int, max_std: float, mesh_cache: MeshCache = None,
-                  reuse_eps: float = 0.0):
+                  reuse_eps: float = 0.0, reuse_counts: torch.Tensor = None):
     """One incremental extraction.
 
     ``mesh_cache`` (optional) gates the updated set: an updated voxel whose
     latent moved by at most ``reuse_eps`` (max-abs) since its last meshing
     is dropped before the 6-neighbour dilation.  The snapshot of every
     voxel this batch meshes is then refreshed in place (deferred voxels
-    keep their old snapshot).
+    keep their old snapshot).  ``reuse_counts`` (optional, (2,) int64)
+    gets the number of updated voxels the gate saw and skipped added in
+    place.
     :return: (MCResult, mesh_ids (mesh_budget,), keep (mesh_budget,) bool,
               map_overflow (), leftover (C,) bool, n_leftover ()).
     """
@@ -95,7 +95,8 @@ def fused_extract(state, updated_mask, cfg, decoder, r: int, mesh_budget: int,
     if mesh_cache is not None:
         delta = (state.latents - mesh_cache.lat[:C]).abs().amax(dim=-1)
         gated = upd & (~mesh_cache.valid[:C] | (delta > reuse_eps))
-        mesh_cache.counts.add_(torch.stack([upd.sum(), (upd & ~gated).sum()]))
+        if reuse_counts is not None:
+            reuse_counts.add_(torch.stack([upd.sum(), (upd & ~gated).sum()]))
         upd = gated
     upd_ids, upd_valid, _ = voxops.compact_by_mask(positions, upd, mesh_budget)
     exp_ids, exp_valid = voxops.expand_neighbors6(upd_ids, upd_valid, cfg.n_xyz)
@@ -222,13 +223,13 @@ class Mesher:
                 C, L = vmap.state.latents.shape
                 self._mesh_cache = MeshCache(
                     torch.zeros((C + 1, L), dtype=torch.float32, device=vmap.device),
-                    torch.zeros(C + 1, dtype=torch.bool, device=vmap.device),
-                    self._reuse_counts)
+                    torch.zeros(C + 1, dtype=torch.bool, device=vmap.device))
                 self._mesh_cache_key = key
         result, ids, keep, map_ovf, leftover, n_left = fused_extract(
             vmap.state, upd, vmap.cfg, vmap.model.decoder, r,
             self.mesh_budget, self.fused_tri_budget, float(max_std),
-            mesh_cache=self._mesh_cache, reuse_eps=self.reuse_latent_eps)
+            mesh_cache=self._mesh_cache, reuse_eps=self.reuse_latent_eps,
+            reuse_counts=self._reuse_counts)
         self._pending.append(_Pending(ids, keep, result, map_ovf, leftover, n_left))
 
     def _extract_chunked(self, voxel_resolution: int, max_std: float,

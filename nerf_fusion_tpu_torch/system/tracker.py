@@ -142,8 +142,9 @@ def _rgb_Hg(tcfg: TrackerConfig, level_data, fx, fy, cx, cy, dR, dt, rgb_weight,
             sparse=None):
     """Photometric term at one pyramid level.
 
-    ``sparse``: optional (prev_rows (H*W, 2), W, H, pix) from the
-    once-per-frame pixel selection; replaces the dense warp."""
+    ``level_data``: (prev_rows (H*W, 2), cur intensity, cur depth, cur
+    gradient) for the dense warp.  ``sparse``: optional (prev_rows, W, H,
+    pix) from the once-per-frame pixel selection; replaces the dense warp."""
     K, Kinv = _intrinsics(fx, fy, cx, cy, dR.device)
     krkinv = K @ dR @ Kinv
     kt = K @ dt
@@ -152,8 +153,8 @@ def _rgb_Hg(tcfg: TrackerConfig, level_data, fx, fy, cx, cy, dR, dt, rgb_weight,
         f, J, ok = imgproc.rgb_odometry_sparse(prev_rows, W, H_, pix, fx, fy, cx, cy,
                                                krkinv, kt, tcfg.max_depth_delta)
     else:
-        prev_i, prev_d, cur_i, cur_d, cur_g = level_data
-        f, J, ok = imgproc.rgb_odometry(prev_i, prev_d, cur_i, cur_d, cur_g,
+        prev_rows, cur_i, cur_d, cur_g = level_data
+        f, J, ok = imgproc.rgb_odometry(prev_rows, cur_i, cur_d, cur_g,
                                         fx, fy, cx, cy, krkinv, kt,
                                         tcfg.min_grad_scale, tcfg.max_depth_delta,
                                         stride=tcfg.rgb_stride)
@@ -181,20 +182,21 @@ def track_gauss_newton(map_state, map_cfg, decoder, tcfg: TrackerConfig,
                        init_dR, init_dt, fx, fy, cx, cy, rgb_weight):
     """The staged GN schedule; returns (dR, dt, iters_used [G] host ints)."""
 
-    # Sparse photometric term: the pixel selection and the packed previous
-    # frame, once per frame for each pyramid level that a group uses.
+    # The packed previous frame, and for the sparse photometric term the
+    # pixel selection, once per frame for each pyramid level a group uses.
+    used = {int(t[1]) if len(t) > 1 else 0
+            for _, terms in tcfg.iter_config for t in terms if t[0] == "rgb"}
+    prev_rows = {lev: imgproc.intensity_depth_rows(prev_pyr.intensity[lev],
+                                                   prev_pyr.depth[lev])
+                 for lev in sorted(used)}
     sparse_levels = {}
     if tcfg.rgb_pixel_budget > 0:
-        used = {int(t[1]) if len(t) > 1 else 0
-                for _, terms in tcfg.iter_config for t in terms if t[0] == "rgb"}
         for lev in sorted(used):
             pix = imgproc.select_photometric_pixels(
                 cur_pyr.intensity[lev], cur_pyr.depth[lev], cur_pyr.gradient[lev],
                 tcfg.rgb_pixel_budget, tcfg.min_grad_scale, stride=tcfg.rgb_stride)
             Hl, Wl = cur_pyr.intensity[lev].shape
-            prev_rows = torch.stack([prev_pyr.intensity[lev].reshape(-1),
-                                     prev_pyr.depth[lev].reshape(-1)], dim=-1)
-            sparse_levels[lev] = (prev_rows, Wl, Hl, pix)
+            sparse_levels[lev] = (prev_rows[lev], Wl, Hl, pix)
 
     def build_Hg(terms, dR, dt):
         H = torch.zeros((6, 6), dtype=torch.float32, device=dR.device)
@@ -207,9 +209,8 @@ def track_gauss_newton(map_state, map_cfg, decoder, tcfg: TrackerConfig,
             elif term[0] == "rgb":
                 lev = int(term[1]) if len(term) > 1 else 0
                 s = 0.5 ** lev if tcfg.scale_level_intrinsics else 1.0
-                level_data = (prev_pyr.intensity[lev], prev_pyr.depth[lev],
-                              cur_pyr.intensity[lev], cur_pyr.depth[lev],
-                              cur_pyr.gradient[lev])
+                level_data = (prev_rows[lev], cur_pyr.intensity[lev],
+                              cur_pyr.depth[lev], cur_pyr.gradient[lev])
                 Ht, gt, et = _rgb_Hg(tcfg, level_data, fx * s, fy * s,
                                      cx * s, cy * s, dR, dt, rgb_weight,
                                      sparse=sparse_levels.get(lev))

@@ -1,6 +1,6 @@
 """Gather probe on the GPU: the row gather and the lane gather alone.
 
-    python -m nerf_fusion_tpu_torch.tools.gather_probe [--reps 50]
+    python -m nerf_fusion_tpu_torch.tools.gather_probe
 
 The port's counterpart of the JAX package's ``tools/gather_exp3.py`` and
 ``tools/gather_exp4.py``, at their shapes (a 640x480 frame):
@@ -13,38 +13,25 @@ The port's counterpart of the JAX package's ``tools/gather_exp3.py`` and
   * the window build of the lane-gather idea: five row-shifted copies of
     a (480, 640) image side by side, (480, 3200), in plain PyTorch.
 
-Each kernel is held bit-exact against its plain version and timed with
-CUDA events over ``--reps`` launches beside the one PyTorch call that
-computes the same function (``index_select`` on the in-range indices,
-``torch.gather``).  Prints one line per measurement and returns them.
-Raises without a GPU.
+Each kernel is held bit-exact against its plain version and timed beside
+the one PyTorch call that computes the same function (``index_select``
+on the in-range indices, ``torch.gather``): device time from a profiler
+trace of ``REPS`` calls (``utils.timing.device_ms``), and for the kernel
+also the call time between CUDA events (``utils.timing.call_ms``).
+Prints one line per measurement and returns them.  Raises without a GPU.
 """
 
 from __future__ import annotations
-
-import argparse
 
 import numpy as np
 import torch
 
 from ..ops import gather
+from ..utils.timing import call_ms, device_ms
 
 H, W = 480, 640
 LANE_WIDTHS = (1280, 1920, 3200, 5120)
-
-
-def time_ms(fn, reps: int) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+REPS = 50
 
 
 def warp_indices(rng: np.random.Generator, n: int = H * W, w: int = W) -> np.ndarray:
@@ -59,10 +46,7 @@ def _check(name: str, out: torch.Tensor, ref: torch.Tensor):
         raise RuntimeError(f"gather_probe: {name} differs from its plain version")
 
 
-def main(argv=None) -> dict:
-    parser = argparse.ArgumentParser()
-    parser.add_argument("--reps", type=int, default=50)
-    opts = parser.parse_args(argv)
+def main() -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("gather_probe measures the GPU; no CUDA device is available")
     dev = torch.device("cuda")
@@ -77,32 +61,37 @@ def main(argv=None) -> dict:
     for C, src in sources.items():
         _check(f"row_gather C={C}", gather.row_gather(src, idx),
                gather.row_gather_plain(src, idx))
-        ms = time_ms(lambda: gather.row_gather(src, idx), opts.reps)
-        lib = time_ms(lambda: torch.index_select(src, 0, idx64), opts.reps)
+        ms = device_ms(lambda: gather.row_gather(src, idx), REPS)
+        call = call_ms(lambda: gather.row_gather(src, idx), REPS)
+        lib = device_ms(lambda: torch.index_select(src, 0, idx64), REPS)
         results["row_gather"].append({"C": C, "N": src.shape[0], "M": idx.shape[0],
-                                      "ms": ms, "library_ms": lib})
+                                      "ms": ms, "call_ms": call, "library_ms": lib})
         print(f"{name}: row_gather ({src.shape[0]}, {C}) at {idx.shape[0]} indices: "
-              f"kernel {ms:.4f} ms, index_select {lib:.4f} ms", flush=True)
+              f"kernel {ms:.4f} ms on the device ({call:.4f} ms per call), "
+              f"index_select {lib:.4f} ms on the device", flush=True)
     for B in LANE_WIDTHS:
         src = torch.as_tensor(rng.normal(size=(H, B)).astype(np.float32), device=dev)
         lidx = torch.as_tensor(rng.integers(0, B, (H, B)).astype(np.int32), device=dev)
         lidx64 = lidx.long()
         _check(f"lane_gather B={B}", gather.lane_gather(src, lidx),
                gather.lane_gather_plain(src, lidx))
-        ms = time_ms(lambda: gather.lane_gather(src, lidx), opts.reps)
-        lib = time_ms(lambda: torch.gather(src, 1, lidx64), opts.reps)
-        results["lane_gather"].append({"H": H, "B": B, "ms": ms, "library_ms": lib})
-        print(f"{name}: lane_gather ({H}, {B}): kernel {ms:.4f} ms, "
-              f"torch.gather {lib:.4f} ms", flush=True)
+        ms = device_ms(lambda: gather.lane_gather(src, lidx), REPS)
+        call = call_ms(lambda: gather.lane_gather(src, lidx), REPS)
+        lib = device_ms(lambda: torch.gather(src, 1, lidx64), REPS)
+        results["lane_gather"].append({"H": H, "B": B, "ms": ms, "call_ms": call,
+                                       "library_ms": lib})
+        print(f"{name}: lane_gather ({H}, {B}): kernel {ms:.4f} ms on the device "
+              f"({call:.4f} ms per call), torch.gather {lib:.4f} ms on the device",
+              flush=True)
     img = torch.as_tensor(rng.normal(size=(H, W)).astype(np.float32), device=dev)
 
     def build():
         return torch.cat([torch.roll(img, -k, dims=0) for k in range(-2, 3)], dim=1)
 
-    ms = time_ms(build, opts.reps)
+    ms = device_ms(build, REPS)
     results["window_build_ms"] = ms
     print(f"{name}: window build, 5 row-shifted copies -> ({H}, {5 * W}): "
-          f"{ms:.4f} ms (plain PyTorch)", flush=True)
+          f"{ms:.4f} ms on the device (plain PyTorch)", flush=True)
     return results
 
 

@@ -117,7 +117,8 @@ def test_rgb_odometry_stride2():
                                     jnp.asarray(d1), jnp.asarray(g1), *args,
                                     jnp.asarray(krkinv), jnp.asarray(kt), 0.0, 0.2,
                                     stride=2)
-    ft, Jt, okt = imgproc.rgb_odometry(_t(i0), _t(d0), _t(i1), _t(d1), _t(g1), *args,
+    ft, Jt, okt = imgproc.rgb_odometry(imgproc.intensity_depth_rows(_t(i0), _t(d0)),
+                                       _t(i1), _t(d1), _t(g1), *args,
                                        _t(krkinv), _t(kt), 0.0, 0.2, stride=2)
     assert np.array_equal(np.asarray(okj), okt.numpy())
     _close(fj, ft.numpy(), 1e-6)

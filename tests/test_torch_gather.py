@@ -108,14 +108,12 @@ def test_lane_gather_matches_pallas_probe_interpret():
 
 
 def test_cpu_gathers_count_no_launch_and_bad_operands_raise():
-    before = (gather.row_gather.launches, dict(gather.row_gather.launches_by_c),
-              gather.lane_gather.launches)
+    before = (dict(gather.row_gather.launches_by_c), gather.lane_gather.launches)
     rows = torch.randn(10, 2)
     idx = torch.tensor([0, 9, 12, -1], dtype=torch.int32)
     assert torch.equal(gather.row_gather(rows, idx), rows[[0, 9, 9, 0]])
     gather.lane_gather(torch.randn(3, 8), torch.zeros(3, 8, dtype=torch.int32))
-    assert (gather.row_gather.launches, gather.row_gather.launches_by_c,
-            gather.lane_gather.launches) == before
+    assert (gather.row_gather.launches_by_c, gather.lane_gather.launches) == before
     with pytest.raises(ValueError):
         gather.row_gather(torch.randn(10, 3), idx)                 # width 3
     with pytest.raises(ValueError):

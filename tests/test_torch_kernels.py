@@ -135,10 +135,9 @@ def test_row_gather_kernel_matches_plain(cuda_device, c):
     rows[torch.randint(0, n, (9,), generator=g)] = float("nan")
     idx = torch.randint(-100, n + 100, (m,), generator=g, dtype=torch.int32)
     rows, idx = rows.to(cuda_device), idx.to(cuda_device)
-    n0, c0 = gather.row_gather.launches, gather.row_gather.launches_by_c[c]
+    before = dict(gather.row_gather.launches_by_c)
     out = gather.row_gather(rows, idx)
-    assert gather.row_gather.launches == n0 + 1
-    assert gather.row_gather.launches_by_c[c] == c0 + 1
+    assert gather.row_gather.launches_by_c == {**before, c: before[c] + 1}
     assert _nan_equal(out, gather.row_gather_plain(rows, idx))
     if c > 1:
         shifted = rows.reshape(-1)[1:1 + (n - 1) * c].view(n - 1, c)   # 4 bytes off

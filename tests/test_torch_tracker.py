@@ -119,8 +119,9 @@ def test_rgb_term_matches_jax(setup, lev):
           p1.gradient[lev])
     jres = JT._rgb_Hg(s["jtc"], ld, c.fx * sc, c.fy * sc, c.cx * sc, c.cy * sc, jR, jt,
                       jnp.asarray(500.0))
-    tres = TT._rgb_Hg(s["ttc"], tuple(_t(a) for a in ld), c.fx * sc, c.fy * sc,
-                      c.cx * sc, c.cy * sc, tR, tt, 500.0)
+    tld = tuple(_t(a) for a in ld)
+    tres = TT._rgb_Hg(s["ttc"], (TI.intensity_depth_rows(*tld[:2]),) + tld[2:],
+                      c.fx * sc, c.fy * sc, c.cx * sc, c.cy * sc, tR, tt, 500.0)
     _assert_Hg(jres, tres)
 
 
@@ -308,9 +309,9 @@ def test_sparse_equals_dense_when_budget_covers(setup, stride):
     ld = tuple(_t(a) for a in ld)
     targs = dict_to_args({**TRACK_ARGS, "rgb": {**TRACK_ARGS["rgb"], "stride": stride}})
     tcfg = TT.TrackerConfig.from_args(targs)
-    Hd, gd, ed = TT._rgb_Hg(tcfg, ld, fx, fy, cx, cy, tR, tt, 500.0)
+    rows = TI.intensity_depth_rows(ld[0], ld[1])
+    Hd, gd, ed = TT._rgb_Hg(tcfg, (rows,) + ld[2:], fx, fy, cx, cy, tR, tt, 500.0)
     Hl, Wl = ld[2].shape
-    rows = torch.stack([ld[0].reshape(-1), ld[1].reshape(-1)], -1)
     n_grid = (Hl // stride) * (Wl // stride)
     res = {}
     for k in (n_grid, n_grid // 4):
