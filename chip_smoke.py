@@ -4,14 +4,20 @@
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels (``nerf_fusion_tpu_torch/csrc/*.cu``, one
-   ``nvcc`` per source, in parallel) and prints the build time.
+   ``nvcc`` per source, in parallel), prints the build time and each
+   kernel's registers and spills as ptxas reports them, and counts the
+   tensor-core instructions in the compiled code of the two decoder
+   variants (fails if either has none).
 2. Holds every kernel against its plain PyTorch version on the card at
    the shapes of the paths below and times both, and the one PyTorch call
    that computes the same function where there is one: device time from
    a profiler trace (``ms``, ``plain_ms``, ``library_ms``), and the
    kernel's call time between CUDA events (``call_ms``), which includes
    the host's cost of issuing it.  The gathers are held bit-exact, NaN
-   positions included.
+   positions included.  A bound is taken at the peak of the unit the
+   kernel computes on (``bound_peak``): the decoders' at three TF32
+   tensor-core passes, with the f32 CUDA-core bound beside it
+   (``bound_f32_ms``).
 3. Runs three paths, each with the launch counters zeroed just before:
    (a) the dense fusion loop through its entry point
        (``nerf_fusion_tpu_torch.main configs/fusion-synth.yaml``, 640x480,
@@ -33,6 +39,7 @@ available.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -42,8 +49,15 @@ REPO = Path(__file__).resolve().parent
 CONFIG = "configs/fusion-synth.yaml"
 FAST_EXEC = "tracking['rgb']['pixel_budget']=24576;mesh_reuse_latent_eps=0.003"
 # NVIDIA H100 SXM data sheet peaks (dense, at the 700 W limit).
-PEAK_F32_FLOPS = 67e12
+PEAK_F32_FLOPS = 67e12      # CUDA cores
+PEAK_TF32_FLOPS = 495e12    # tensor cores
 PEAK_BYTES = 3.35e12
+# The decoder's hidden layers on the tensor cores, MACs per point: the
+# forward pass, and the gradient variant's activation plus three tangents
+# (lin1, lin2 and lin3's first 96 inputs; the one-hot tangents of lin0 and
+# of lin3's re-fed input are weight rows, no product).
+DECODER_TC_MACS = 32 * 128 + 128 * 128 + 128 * 96 + 128 * 128
+DECODER_GRAD_TC_MACS = DECODER_TC_MACS + 3 * (128 * 128 + 128 * 96 + 96 * 128)
 TOL_MLP = 1e-4          # decoder / encoder outputs: f32, summation order only
 TOL_GRAD = 1e-3         # decoder input gradient
 TOL_NORMAL_DOT = 0.999  # |n . n_plain| on 99 % of the valid pixels
@@ -53,8 +67,10 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
+    """Least time for the work at ``peak`` FLOP/s (the unit the kernel runs
+    its operations on) and the HBM rate, and which of the two bounds it."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -222,7 +238,9 @@ def kernel_phase(dev):
         ms=device_ms(lambda: mlp.decoder_forward(x, dec.packed, dec.mats)),
         call_ms=call_ms(lambda: mlp.decoder_forward(x, dec.packed, dec.mats)),
         plain_ms=device_ms(lambda: mlp.decoder_forward_plain(x, dec.mats)),
-        bound=bound_ms(2 * 49408 * n, n * (32 + 2) * 4 + 49890 * 4)))
+        bound=bound_ms(3 * 2 * DECODER_TC_MACS * n, n * (32 + 2) * 4 + 49890 * 4,
+                       PEAK_TF32_FLOPS),
+        bound_f32=bound_ms(2 * 49408 * n, n * (32 + 2) * 4 + 49890 * 4)))
 
     # decoder forward + input gradient: the tracker's GN point budget
     n = 8192
@@ -243,8 +261,10 @@ def kernel_phase(dev):
         ms=device_ms(lambda: mlp.decoder_forward_grad(xg, dec.packed, dec.mats)),
         call_ms=call_ms(lambda: mlp.decoder_forward_grad(xg, dec.packed, dec.mats)),
         plain_ms=device_ms(lambda: mlp.decoder_forward_grad_plain(xg, dec.mats)),
-        bound=bound_ms(2 * (49408 + 3 * (128 * 128 + 128 * 96 + 96 * 128 + 128)) * n,
-                       n * (32 + 2 + 3) * 4 + 49890 * 4)))
+        bound=bound_ms(3 * 2 * DECODER_GRAD_TC_MACS * n, n * (32 + 2 + 3) * 4 + 49890 * 4,
+                       PEAK_TF32_FLOPS),
+        bound_f32=bound_ms(2 * (49408 + 3 * (128 * 128 + 128 * 96 + 96 * 128 + 128)) * n,
+                           n * (32 + 2 + 3) * 4 + 49890 * 4)))
 
     # encoder: 8 corner pairs x points_capacity 40960
     n = 8 * 40960
@@ -322,6 +342,8 @@ def kernel_phase(dev):
         extra = {k: r[k] for k in ("grad_err", "grad_within_tol", "normal_agree_frac",
                                    "count_err", "library_ms", "selection_matches_cpu")
                  if k in r}
+        if "bound_f32" in r:
+            extra["bound_f32_ms"] = r["bound_f32"][0]
         print(f"kernel {r['name']}: {r['shape']} max_abs_err {r['err']:.3e} {extra} "
               f"kernel {r['ms']:.4f} ms on the device ({r['call_ms']:.4f} ms per call) "
               f"plain {r['plain_ms']:.4f} ms bound {r['bound'][0]:.4f} ms "
@@ -348,6 +370,50 @@ def kernel_phase(dev):
 KERNEL_ROWS = ("decoder_forward", "decoder_forward_grad", "encoder_forward",
                "stencil_count", "stencil_normals", "row_gather", "row_gather_c1",
                "lane_gather")
+
+
+def ptxas_report(report: dict):
+    """Registers, spills and errors from ``nvcc -Xptxas=-v``, per kernel."""
+    for name, r in report.items():
+        fn = ""
+        for line in r["ptxas"].splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1)
+            elif "registers" in line or "spill" in line or "error" in line:
+                print(f"  {name}: {fn[-48:]}: {line.strip()}")
+
+
+def tensor_core_counts() -> dict:
+    """Tensor-core instructions in each decoder instantiation: HMMA/HGMMA in
+    the SASS of the built library (``cuobjdump -sass``) or, where the
+    toolkit has no cuobjdump, mma/wgmma in the PTX of the same source."""
+    from nerf_fusion_tpu_torch.ops import cuda_build
+
+    kernels = {"decoder_forward": "decoder_kernelILb0E",
+               "decoder_forward_grad": "decoder_kernelILb1E"}
+    cuobjdump = Path(cuda_build.nvcc_path()).with_name("cuobjdump")
+    if cuobjdump.exists():
+        cmd = [str(cuobjdump), "-sass", str(cuda_build.library_path("mlp"))]
+        header, instr = r"\n\s*Function : ", r"\bH(?:G)?MMA\b"
+    else:
+        cmd = [cuda_build.nvcc_path(), "-arch=sm_90a", "-std=c++17", "-O3", "-ptx", "-o", "-",
+               str(cuda_build.CSRC_DIR / "mlp.cu")]
+        header, instr = r"\.entry\s+", r"\b(?:wgmma\.mma_async|mma\.sync)\b"
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"{' '.join(cmd[:2])} failed: {out.stderr.strip()[-2000:]}")
+    counts = {}
+    for body in re.split(header, out.stdout)[1:]:
+        fn = body.split(None, 1)[0]
+        for name, key in kernels.items():
+            if key in fn:
+                counts[name] = len(re.findall(instr, body))
+    print(f"tensor-core instructions ({Path(cmd[0]).name}): {counts}", flush=True)
+    for name in kernels:
+        if not counts.get(name):
+            fail(f"{name}: no tensor-core instruction in its compiled code")
+    return counts
 
 
 def zero_launches():
@@ -468,10 +534,8 @@ def main() -> int:
     t0 = time.perf_counter()
     report = cuda_build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(report)}", flush=True)
-    for name, r in report.items():
-        for line in r["ptxas"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"  {name}: {line.strip()}")
+    ptxas_report(report)
+    tensor_cores = tensor_core_counts()
     rows = kernel_phase(dev)
     paths = {}
     paths["dense"], _ = fusion_path(dev, "dense")
@@ -488,6 +552,11 @@ def main() -> int:
             "max_abs_err": r["err"], "tolerance": r["tol"],
             "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "bound_peak": ("tf32 tensor cores, 3 passes" if r["name"] in tensor_cores
+                           else "f32 CUDA cores" if r["bound"][1] == "operations" else "HBM"),
+            **({"bound_f32_ms": r["bound_f32"][0],
+                "tensor_core_instructions": tensor_cores[r["name"]]}
+               if r["name"] in tensor_cores else {}),
             "library_ms": r.get("library_ms"), "shape": r["shape"],
             **{k: r[k] for k in ("grad_err", "grad_tol", "grad_within_tol", "count_err",
                                  "normal_agree_frac", "selection_matches_cpu", "cases")

@@ -6,8 +6,9 @@ layer, ``std = 0.05 + 0.5 softplus(unc(h))`` read from the activation
 entering the last layer, and ``sdf = tanh(lin4(h))``.  Weight-norm is
 folded into plain (in, out) matrices when the module is built; the forward
 pass runs the hand-written CUDA kernel (``ops.mlp``) on the card and its
-plain version on the CPU.  Matrix products are f32 (no TF32): the
-tracker's Jacobians need those digits.
+plain version on the CPU.  Matrix products are f32, or on the card the
+3xTF32 split, which is as exact (not one-pass TF32): the tracker's
+Jacobians need those digits.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ class Decoder(nn.Module):
         for i, (w, b) in enumerate(mats):
             self.register_buffer(f"w{i}", w.contiguous())
             self.register_buffer(f"b{i}", b.contiguous())
-        self.register_buffer("packed", mlp.pack(mats))
+        self.register_buffer("packed", mlp.pack_decoder(mats))
 
     @property
     def mats(self):

@@ -2,7 +2,9 @@
 
 Counterpart of the JAX package's ``ops/pallas_mlp.py``.  The kernels live
 in ``csrc/mlp.cu``; this module folds the weights, packs them in the
-kernels' layout, and exposes three wrappers:
+kernels' layouts (``pack_decoder``: the tensor cores' fragment order;
+``pack``: plain (in, out) matrices for the encoder), and exposes three
+wrappers:
 
   * ``decoder_forward``       (N, 32) -> (N, 2) [sdf, std]
   * ``decoder_forward_grad``  (N, 32) -> (N, 2), (N, 3) d sdf / d x[:, 29:32]
@@ -70,8 +72,28 @@ def fold_encoder_weights(params: dict, bn_state: dict, n_layers: int,
 
 
 def pack(mats) -> torch.Tensor:
-    """[(W, b), ...] -> one flat f32 buffer, the kernels' weight layout."""
+    """[(W, b), ...] -> one flat f32 buffer, the encoder kernel's weight layout."""
     return torch.cat([t.reshape(-1) for wb in mats for t in wb]).contiguous()
+
+
+def _fragments(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) -> the tensor cores' B-fragment order of the decoder kernel:
+    element (kb, nb, g, t, j) = W[8kb + 2t + j, 8nb + g], so lane 4g + t of
+    a warp loads its two values of K block kb, N block nb as one float2, and
+    K positions t, t + 4 of the fragment hold rows 2t, 2t + 1 of the block:
+    the columns that an m16n8 accumulator lane holds."""
+    k, n = w.shape
+    return w.reshape(k // 8, 4, 2, n // 8, 8).permute(0, 3, 4, 1, 2).reshape(-1)
+
+
+def pack_decoder(mats) -> torch.Tensor:
+    """Folded decoder [(W, b)] -> the decoder kernel's flat f32 buffer: the
+    four hidden layers' matrices in B-fragment order (``_fragments``), each
+    followed by its bias, then lin4 and unc as they are."""
+    parts = []
+    for i, (w, b) in enumerate(mats):
+        parts += [_fragments(w) if i < 4 else w.reshape(-1), b.reshape(-1)]
+    return torch.cat(parts).contiguous()
 
 
 def _softplus(z):

@@ -82,9 +82,12 @@ def test_build_flags_target_hopper():
 
 
 @pytest.mark.cuda
-def test_decoder_kernels_match_plain(cuda_device, model):
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 3001, 8192, 262144])
+def test_decoder_kernels_match_plain(cuda_device, model, n):
+    """Both variants at ragged sizes (the forward tile holds 16 points, the
+    gradient tile 4), the tracker's 8192 and the mesher's chunk."""
     dec = model.decoder.to(cuda_device)
-    x = (0.4 * torch.randn(3001, 32)).to(cuda_device)
+    x = (0.4 * torch.randn(n, 32, generator=torch.Generator().manual_seed(n))).to(cuda_device)
     n0 = mlp.decoder_forward.launches
     out = mlp.decoder_forward(x, dec.packed, dec.mats)
     assert mlp.decoder_forward.launches == n0 + 1
