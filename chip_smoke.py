@@ -7,16 +7,19 @@
    ``nvcc`` per source, in parallel), prints the build time and each
    kernel's registers and spills as ptxas reports them, and counts the
    tensor-core instructions in the compiled code of the two decoder
-   variants (fails if either has none).
+   variants and the encoder (fails if one has none).
 2. Holds every kernel against its plain PyTorch version on the card at
    the shapes of the paths below and times both, and the one PyTorch call
    that computes the same function where there is one: device time from
    a profiler trace (``ms``, ``plain_ms``, ``library_ms``), and the
    kernel's call time between CUDA events (``call_ms``), which includes
    the host's cost of issuing it.  The gathers are held bit-exact, NaN
-   positions included.  A bound is taken at the peak of the unit the
-   kernel computes on (``bound_peak``): the decoders' at three TF32
-   tensor-core passes, with the f32 CUDA-core bound beside it
+   positions included; the photometric kernel's valid count exactly, its
+   H, g and energy to 1e-4 of each output's largest entry, and two calls
+   bitwise, at the dense level-0 shape and at the fast path's 24576-pixel
+   selection.  A bound is taken at the peak of the unit the kernel
+   computes on (``bound_peak``): the decoders' and the encoder's at three
+   TF32 tensor-core passes, with the f32 CUDA-core bound beside it
    (``bound_f32_ms``).
 3. Runs three paths, each with the launch counters zeroed just before:
    (a) the dense fusion loop through its entry point
@@ -26,9 +29,10 @@
        ``configs/fusion-lr-kt-fast.yaml`` (``rgb.pixel_budget`` 24576,
        ``mesh_reuse_latent_eps`` 0.003) given by ``--exec``;
    (c) the gather probe (``nerf_fusion_tpu_torch.tools.gather_probe``).
-   Fails unless every kernel launched on some path, the row gather on
-   both fusion paths, and on (a) and (b) the box filter dropped nothing
-   and ATE and mesh |SDF| are below 20 mm.
+   Fails unless every kernel launched on some path, the photometric
+   kernel on both fusion paths, the row gather at 4 columns (the
+   selection) on (b) and at 1, 2 and 4 on (c), and on (a) and (b) the
+   box filter dropped nothing and ATE and mesh |SDF| are below 20 mm.
 4. Prints the ``{"kernels": [...]}`` line, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -58,7 +62,17 @@ PEAK_BYTES = 3.35e12
 # of lin3's re-fed input are weight rows, no product).
 DECODER_TC_MACS = 32 * 128 + 128 * 128 + 128 * 96 + 128 * 128
 DECODER_GRAD_TC_MACS = DECODER_TC_MACS + 3 * (128 * 128 + 128 * 96 + 96 * 128)
+# The encoder's four layers, all on the tensor cores, MACs per row (the
+# function's: the kernel's zero padding of K 6 -> 8 and N 29 -> 32 is not
+# counted).
+ENCODER_MACS = 6 * 32 + 32 * 64 + 64 * 256 + 256 * 29
+# The photometric term per evaluated pixel (the warp: three rows of 2 mul
+# + 2 add, a mul and an add, two divisions, two roundings) and per valid
+# pixel (the Jacobian, the weight, 21 + 6 + 1 multiply-adds of the sums).
+PHOTO_OPS_PIXEL = 24
+PHOTO_OPS_VALID = 96
 TOL_MLP = 1e-4          # decoder / encoder outputs: f32, summation order only
+TOL_HG = 1e-4           # photometric H, g, energy: of each output's largest |entry|
 TOL_GRAD = 1e-3         # decoder input gradient
 TOL_NORMAL_DOT = 0.999  # |n . n_plain| on 99 % of the valid pixels
 
@@ -174,12 +188,12 @@ def gather_phase(dev, fr_next):
                        lambda: torch.gather(src, 1, lib_idx), H * B * 8 + touched * 4,
                        f"({H}, {B}) at ({H}, {B})")
     rows = [
-        dict(name="row_gather", err=dense["err"], tol=0.0,
+        dict(name="row_gather", err=max(dense["err"], probe["err"], select["err"]), tol=0.0,
              source="nerf_fusion_tpu_torch/csrc/gather.cu",
              replaces="tools/gather_exp3.py:88 (pallas_gather)",
-             shape=dense["shape"] + " (dense warp, stride 2)",
-             ms=dense["ms"], call_ms=dense["call_ms"], plain_ms=dense["plain_ms"],
-             bound=dense["bound"], library_ms=dense["library_ms"],
+             shape=select["shape"] + " (the fast path's selection)",
+             ms=select["ms"], call_ms=select["call_ms"], plain_ms=select["plain_ms"],
+             bound=select["bound"], library_ms=select["library_ms"],
              selection_matches_cpu=sel_match,
              cases=[dict(case=k, shape=v["shape"], max_abs_err=v["err"], ms=v["ms"],
                          call_ms=v["call_ms"], plain_ms=v["plain_ms"],
@@ -197,12 +211,125 @@ def gather_phase(dev, fr_next):
              ms=lane["ms"], call_ms=lane["call_ms"], plain_ms=lane["plain_ms"],
              bound=lane["bound"], library_ms=lane["library_ms"]),
     ]
-    for k, v in (("probe", probe), ("selection_c4", select)):
+    for k, v in (("dense_warp", dense), ("probe", probe), ("selection_c4", select)):
         if not v["err"] <= 0.0:
             fail(f"row_gather ({k}) differs from its plain version: {v['err']}")
     if not sel_match:
         fail("select_photometric_pixels on the card differs from the CPU's selection")
     return rows
+
+
+def _warp_touched(level, krkinv, kt, stride, min_grad) -> int:
+    """Distinct source rows the photometric kernel reads: those of the
+    in-bounds warps of the pixels that pass the tests before the gather
+    (the warp as ``imgproc.rgb_odometry`` computes it)."""
+    import torch
+
+    from nerf_fusion_tpu_torch.ops import photometric
+
+    if isinstance(level, photometric.Sparse):
+        u, v, _, d1, _, _, ok = level.pix
+        W, H = level.W, level.H
+    else:
+        H, W = level.intensity.shape
+        gx, gy = level.gradient
+        grad2 = gx * gx + gy * gy
+        ok = (torch.isfinite(grad2) & (grad2 >= min_grad) & torch.isfinite(level.depth)
+              & torch.isfinite(level.intensity) & (level.depth > 0))[::stride, ::stride]
+        d1 = level.depth[::stride, ::stride]
+        v, u = torch.meshgrid(torch.arange(0, H, stride, device=d1.device, dtype=torch.float32),
+                              torch.arange(0, W, stride, device=d1.device, dtype=torch.float32),
+                              indexing="ij")
+    k = krkinv
+    wz = d1 * (k[2, 0] * u + k[2, 1] * v + k[2, 2]) + kt[2]
+    u0 = torch.round((d1 * (k[0, 0] * u + k[0, 1] * v + k[0, 2]) + kt[0]) / wz)
+    v0 = torch.round((d1 * (k[1, 0] * u + k[1, 1] * v + k[1, 2]) + kt[1]) / wz)
+    inb = ok & (u0 >= 0) & (u0 < W) & (v0 >= 0) & (v0 < H)
+    lin = (v0[inb] * W + u0[inb]).long()
+    return int(torch.unique(lin).numel())
+
+
+def photometric_phase(dev, seq):
+    """The photometric kernel at the dense path's level 0 (640x480 at
+    stride 2: 76800 pixels) and at the fast path's 24576-pixel selection,
+    on two preprocessed frames of the synthetic sequence and their
+    ground-truth relative pose, with the config's photometric settings."""
+    import numpy as np
+    import torch
+
+    from nerf_fusion_tpu_torch.ops import imgproc, photometric
+    from nerf_fusion_tpu_torch.system.frontend import preprocess_frame
+    from nerf_fusion_tpu_torch.system.tracker import _intrinsics
+    from nerf_fusion_tpu_torch.utils.config import parse_config_yaml
+    from nerf_fusion_tpu_torch.utils.timing import call_ms, device_ms
+
+    rgb = parse_config_yaml(REPO / CONFIG).tracking["rgb"]
+    f0, f1 = seq.render_frame(10), seq.render_frame(11)
+    c = f0.calib
+    pre0, pre1 = (preprocess_frame(f.rgb, f.depth, c.fx, c.fy, c.cx, c.cy, 0.5, 5.0, 40960)
+                  for f in (f0, f1))
+    rows = imgproc.intensity_depth_rows(pre0.pyramid.intensity[0], pre0.pyramid.depth[0])
+    cur = photometric.Dense(pre1.pyramid.intensity[0], pre1.pyramid.depth[0],
+                            pre1.pyramid.gradient[0])
+    H, W = cur.intensity.shape
+    rel = f0.gt_pose.inv().dot(f1.gt_pose).matrix
+    dR = torch.as_tensor(np.asarray(rel[:3, :3], np.float32), device=dev)
+    dt = torch.as_tensor(np.asarray(rel[:3, 3], np.float32), device=dev)
+    K, Kinv = _intrinsics(c.fx, c.fy, c.cx, c.cy, dev)
+    krkinv, kt = K @ dR @ Kinv, K @ dt
+    stride = int(rgb["stride"])
+    kw = dict(min_grad_scale=float(rgb["min_grad_scale"]),
+              max_depth_delta=float(rgb["max_depth_delta"]), stride=stride,
+              robust_kernel=rgb["robust_kernel"], robust_k=float(rgb["robust_k"]),
+              rgb_weight=float(rgb["weight"]))
+    sel = photometric.Sparse(W, H, imgproc.select_photometric_pixels(
+        *cur, 24576, kw["min_grad_scale"], stride=stride))
+    cases = {}
+    for name, level in (("dense", cur), ("sparse", sel)):
+        args = (rows, level, krkinv, kt, c.fx, c.fy, c.cx, c.cy)
+        out = photometric.photometric_hg(*args, **kw)
+        again = photometric.photometric_hg(*args, **kw)
+        ref = photometric.photometric_hg_plain(*args, **kw)
+        torch.cuda.synchronize()
+        n_pix = (level.pix[0].numel() if name == "sparse"
+                 else ((H + stride - 1) // stride) * ((W + stride - 1) // stride))
+        n_valid = int(ref[3])
+        touched = _warp_touched(level, krkinv, kt, stride, kw["min_grad_scale"])
+        in_bytes = n_pix * (6 * 4 + 1) if name == "sparse" else n_pix * 4 * 4
+        cases[name] = dict(
+            shape=(f"({H * W}, 2) source, {n_pix} pixels"
+                   + (" (selection)" if name == "sparse" else f" (stride {stride})")),
+            count=float(out[3]), count_plain=float(ref[3]),
+            err=max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                    for a, b in zip(out[:3], ref[:3])),
+            repeat_equal=all(torch.equal(a, b) for a, b in zip(out, again)),
+            ms=device_ms(lambda: photometric.photometric_hg(*args, **kw), 100),
+            call_ms=call_ms(lambda: photometric.photometric_hg(*args, **kw), 100),
+            plain_ms=device_ms(lambda: photometric.photometric_hg_plain(*args, **kw), 100),
+            bound=bound_ms(n_pix * PHOTO_OPS_PIXEL + n_valid * PHOTO_OPS_VALID,
+                           in_bytes + touched * 8 + 12 * 4 + 44 * 4))
+    for name, v in cases.items():
+        if v["count"] != v["count_plain"]:
+            fail(f"photometric_hg ({name}): valid count {v['count']} != the plain "
+                 f"version's {v['count_plain']}")
+        if not v["repeat_equal"]:
+            fail(f"photometric_hg ({name}): two calls on the same inputs differ")
+        if not v["count"] > 0:
+            fail(f"photometric_hg ({name}): no valid pixel")
+    d = cases["dense"]
+    return [dict(
+        name="photometric_hg", err=max(v["err"] for v in cases.values()), tol=TOL_HG,
+        source="nerf_fusion_tpu_torch/csrc/photometric.cu",
+        replaces="tools/gather_exp3.py:88 (pallas_gather), with "
+                 "nerf_fusion_tpu/ops/imgproc.py:524 (rgb_odometry) / :477 "
+                 "(rgb_odometry_sparse) and nerf_fusion_tpu/system/tracker.py:175 (_rgb_Hg)",
+        shape=d["shape"], ms=d["ms"], call_ms=d["call_ms"], plain_ms=d["plain_ms"],
+        bound=d["bound"], library_ms=None,
+        cases=[dict(case=k, shape=v["shape"], max_rel_err=v["err"], count=v["count"],
+                    count_plain=v["count_plain"], repeat_equal=v["repeat_equal"],
+                    ms=v["ms"], call_ms=v["call_ms"], plain_ms=v["plain_ms"],
+                    bound_ms=v["bound"][0], bound_by=v["bound"][1])
+               for k, v in cases.items()])]
 
 
 def kernel_phase(dev):
@@ -283,7 +410,10 @@ def kernel_phase(dev):
         ms=device_ms(lambda: mlp.encoder_forward(xe, enc.packed, enc.mats)),
         call_ms=call_ms(lambda: mlp.encoder_forward(xe, enc.packed, enc.mats)),
         plain_ms=device_ms(lambda: mlp.encoder_forward_plain(xe, enc.mats)),
-        bound=bound_ms(2 * 26048 * n, n * (6 + 29) * 4 + 26429 * 4)))
+        bound=bound_ms(3 * 2 * ENCODER_MACS * n, n * (6 + 29) * 4 + mlp.ENCODER_PACKED * 4,
+                       PEAK_TF32_FLOPS),
+        bound_f32=bound_ms(2 * ENCODER_MACS * n,
+                           n * (6 + 29) * 4 + mlp.ENCODER_PACKED * 4)))
 
     # stencils: the frontend's 320x240 point planes of a rendered frame
     seq = SyntheticSequence(n_frames=100, width=640, height=480, device=dev)
@@ -338,6 +468,7 @@ def kernel_phase(dev):
         bound=bound_ms(n_valid * (49 * 8 + 100) + n_acc * 16, px * (13 + 16))))
 
     rows += gather_phase(dev, seq.render_frame(1))
+    rows += photometric_phase(dev, seq)
     for r in rows:
         extra = {k: r[k] for k in ("grad_err", "grad_within_tol", "normal_agree_frac",
                                    "count_err", "library_ms", "selection_matches_cpu")
@@ -369,7 +500,7 @@ def kernel_phase(dev):
 
 KERNEL_ROWS = ("decoder_forward", "decoder_forward_grad", "encoder_forward",
                "stencil_count", "stencil_normals", "row_gather", "row_gather_c1",
-               "lane_gather")
+               "lane_gather", "photometric_hg")
 
 
 def ptxas_report(report: dict):
@@ -385,13 +516,15 @@ def ptxas_report(report: dict):
 
 
 def tensor_core_counts() -> dict:
-    """Tensor-core instructions in each decoder instantiation: HMMA/HGMMA in
-    the SASS of the built library (``cuobjdump -sass``) or, where the
-    toolkit has no cuobjdump, mma/wgmma in the PTX of the same source."""
+    """Tensor-core instructions in each MLP kernel (the two decoder
+    instantiations and the encoder): HMMA/HGMMA in the SASS of the built
+    library (``cuobjdump -sass``) or, where the toolkit has no cuobjdump,
+    mma/wgmma in the PTX of the same source."""
     from nerf_fusion_tpu_torch.ops import cuda_build
 
     kernels = {"decoder_forward": "decoder_kernelILb0E",
-               "decoder_forward_grad": "decoder_kernelILb1E"}
+               "decoder_forward_grad": "decoder_kernelILb1E",
+               "encoder_forward": "encoder_kernel"}
     cuobjdump = Path(cuda_build.nvcc_path()).with_name("cuobjdump")
     if cuobjdump.exists():
         cmd = [str(cuobjdump), "-sass", str(cuda_build.library_path("mlp"))]
@@ -417,10 +550,10 @@ def tensor_core_counts() -> dict:
 
 
 def zero_launches():
-    from nerf_fusion_tpu_torch.ops import gather, mlp, stencil
+    from nerf_fusion_tpu_torch.ops import gather, mlp, photometric, stencil
 
     for w in (mlp.decoder_forward, mlp.decoder_forward_grad, mlp.encoder_forward,
-              stencil.neighbor_count, stencil.normals_stencil):
+              stencil.neighbor_count, stencil.normals_stencil, photometric.photometric_hg):
         w.launches = 0
     gather.reset_launches()
 
@@ -428,7 +561,7 @@ def zero_launches():
 def read_launches() -> dict:
     """Launches per kernel row; the row gather is split by row width: C = 2
     and 4 are ``pallas_gather``'s counterpart, C = 1 ``pallas_gather1``'s."""
-    from nerf_fusion_tpu_torch.ops import gather, mlp, stencil
+    from nerf_fusion_tpu_torch.ops import gather, mlp, photometric, stencil
 
     by_c = gather.row_gather.launches_by_c
     return {"decoder_forward": mlp.decoder_forward.launches,
@@ -438,6 +571,7 @@ def read_launches() -> dict:
             "stencil_normals": stencil.normals_stencil.launches,
             "row_gather": by_c[2] + by_c[4], "row_gather_c1": by_c[1],
             "lane_gather": gather.lane_gather.launches,
+            "photometric_hg": photometric.photometric_hg.launches,
             "row_gather_by_width": dict(by_c)}
 
 
@@ -498,16 +632,18 @@ def probe_path():
 def check_launches(paths: dict):
     required = {
         "dense": ("decoder_forward", "decoder_forward_grad", "encoder_forward",
-                  "stencil_count", "stencil_normals", "row_gather"),
+                  "stencil_count", "stencil_normals", "photometric_hg"),
         "fast": ("decoder_forward", "decoder_forward_grad", "encoder_forward",
-                 "stencil_count", "stencil_normals", "row_gather"),
+                 "stencil_count", "stencil_normals", "photometric_hg", "row_gather"),
         "probe": ("row_gather", "row_gather_c1", "lane_gather"),
     }
     for label, names in required.items():
         for name in names:
             if paths[label][name] <= 0:
                 fail(f"kernel {name} was not launched on the {label} path")
-    widths = {"dense": (2,), "fast": (2, 4), "probe": (1, 2, 4)}
+    # the dense and sparse warps gather inside the photometric kernel; the
+    # selection's (N, 4) gather stays on the fast path
+    widths = {"fast": (4,), "probe": (1, 2, 4)}
     for label, cs in widths.items():
         for c in cs:
             if paths[label]["row_gather_by_width"][c] <= 0:

@@ -6,50 +6,63 @@
 //   encoder_forward                       <- _encoder_pallas_call (:165),
 //       kernel _encoder_kernel (:155), entry encoder_forward_pallas (:180).
 //
-// Decoder.  Its four hidden layers (lin0 32->128, lin1 128->128, lin2
-// 128->96, lin3 [h 96 | x 32]->128) hold 49,152 MACs per point for 128 bytes
-// in and 8 out, far above any ridge point: arithmetic bounds it.  They run as
-// TF32 tensor-core products (mma.sync m16n8k8, f32 accumulate) with the
-// 3xTF32 split, operand x = hi + lo, both TF32, and acc += a_lo w_hi,
-// acc += a_hi w_lo, acc += a_hi w_hi: small terms first, hi.hi last.  That is
-// as exact as f32 products (the JAX package's bf16x3 split is not: it misses
-// the 1e-4 output tolerance on the mesher's inputs), at 3 passes of the TF32
-// rate, where the f32 CUDA cores (67 TFLOP/s) bounded the earlier kernel.
-// What bounds it now is the rate of mma.sync's TF32 products, about half of
-// the 495 TFLOP/s that only wgmma reaches (PERF.md); the shared loads and the
-// splits fit between them.
+// Both MLPs hold tens of thousands of MACs per row for a few hundred bytes
+// in and out, far above any ridge point: arithmetic bounds them.  Their
+// layers run as TF32 tensor-core products (mma.sync m16n8k8, f32
+// accumulate) with the 3xTF32 split, operand x = hi + lo, both TF32, and
+// acc += a_lo w_hi, acc += a_hi w_lo, acc += a_hi w_hi: small terms first,
+// hi.hi last.  That is as exact as f32 products (the JAX package's bf16x3
+// split is not: it misses the 1e-4 output tolerance on the mesher's
+// inputs), at 3 passes of the TF32 rate, where the f32 CUDA cores (67
+// TFLOP/s) bounded the first kernels.  What bounds them now is the rate of
+// mma.sync's TF32 products, about half of the 495 TFLOP/s that only wgmma
+// reaches (PERF.md); the shared loads and the splits fit between them.
 //
-// Design: a persistent grid of one block per SM (at most); the block copies
-// all the packed weights (199,560 bytes) into shared memory once and its 8
-// warps then loop over 16-row tiles.  A warp keeps its tile's activations in
-// registers across the layers: the host packs each hidden layer's (in, out)
-// matrix in B-fragment order with the rows of every 8-wide K block permuted
-// (fragment element (kb, nb, lane = 4g + t, j) = W[8kb + 2t + j][8nb + g]),
-// so the m16n8 accumulator of one layer (row g, cols 2t and 2t+1) is the A
-// fragment of the next with no shuffle and no trip through shared memory.
-// Each B fragment is one conflict-free 8-byte shared load per lane.  Its
-// split costs two instructions: the block stages each weight as
-// trunc(w) + rna(w - trunc(w)), a sum f32 holds exactly and whose truncation
-// gives the two parts back (rna = cvt.rna.tf32.f32: to nearest, ties away
-// from zero).  An activation is split as rna(a) + rna(a - rna(a)), once per
-// layer and K block, and serves the 12-16 N blocks of the layer.  The heads
-// (lin4, unc: 128 -> 1) stay on the CUDA cores in f32: the four lanes of a
-// row each sum 32 products, two xor-shuffles sum the row.
+// Shared design: a persistent grid; each block copies all the packed
+// weights into shared memory once and its warps then loop over 16-row
+// tiles.  A warp keeps its tile's activations in registers across the
+// layers: the host packs each layer's (in, out) matrix in B-fragment order
+// with the rows of every 8-wide K block permuted (fragment element (kb, nb,
+// lane = 4g + t, j) = W[8kb + 2t + j][8nb + g]), so the m16n8 accumulator of
+// one layer (row g, cols 2t and 2t+1) is the A fragment of the next with no
+// shuffle and no trip through shared memory.  Each B fragment is one
+// conflict-free 8-byte shared load per lane.  Its split costs two
+// instructions: the block stages each weight as trunc(w) + rna(w - trunc(w)),
+// a sum f32 holds exactly and whose truncation gives the two parts back
+// (rna = cvt.rna.tf32.f32: to nearest, ties away from zero).  An activation
+// is split as rna(a) + rna(a - rna(a)), once per layer and K block, and
+// serves every N block of the layer.
 //
-// The gradient variant carries, in forward mode, the three tangents
-// d h / d xyz beside the activation: a tile holds 4 points x 4 planes (row
-// 4p + s; plane 0 the activation, planes 1-3 the tangents).  A tangent row
-// enters lin0 and lin3's re-fed input as the one-hot row of its xyz column,
-// takes no bias, and takes the ReLU mask of its point's activation row, one
-// shuffle from lane (lane & ~12) per accumulator register; the heads end with
-// (1 - sdf^2) times the tangent's lin4 product.  The rows of one layer are
-// thus handled by the same code in both variants.
+// Decoder: hidden layers lin0 32->128, lin1 128->128, lin2 128->96 and lin3
+// [h 96 | x 32]->128 on the tensor cores (199,560 bytes of weights, one
+// block of 8 warps per SM).  The heads (lin4, unc: 128 -> 1) stay on the
+// CUDA cores in f32: the four lanes of a row each sum 32 products, two
+// xor-shuffles sum the row.  The gradient variant carries, in forward mode, the three
+// tangents d h / d xyz beside the activation: a tile holds 4 points x 4
+// planes (row 4p + s; plane 0 the activation, planes 1-3 the tangents).  A
+// tangent row enters lin0 and lin3's re-fed input as the one-hot row of its
+// xyz column, takes no bias, and takes the ReLU mask of its point's
+// activation row, one shuffle from lane (lane & ~12) per accumulator
+// register; the heads end with (1 - sdf^2) times the tangent's lin4 product.
 //
-// Encoder: f32 FMAs on the CUDA cores, one block per tile of P rows, one
-// thread per output neuron.  The tile's activations live in shared memory and
-// are updated in place: a layer accumulates its outputs in registers (P per
-// thread), synchronises, then overwrites the tile.  Its folded weights
-// (104 KB) are read through the read-only data cache, once per tile.
+// Encoder (cnp SharedMLP, eval BatchNorm folded): 6 -> 32 -> 64 -> 256 -> 29,
+// all four layers on the tensor cores.  The first layer's K = 6 is padded
+// to one 8-wide K block (zero weight rows): the input then arrives in the A
+// layout, the layer costs 12 products a tile, and it leaves its output in
+// the accumulator layout the next layer takes.  The last layer is padded to
+// N = 32 (zero columns); only columns < 29 are stored, as scalars (an
+// output row is 116 bytes, so odd rows are not 8-byte aligned).  The
+// 256-wide layer is never held whole: it runs in four 64-column chunks,
+// each taken through its ReLU and multiplied at once into the last layer's
+// 16 x 32 accumulator as that layer's K chunk, so a warp holds the 64-wide
+// input (32 registers, or its 64 split halves, which the compiler hoists
+// out of the chunk loop), a 32-register chunk and the 16-register output
+// accumulator.  That is more than the 128 registers a thread that two
+// blocks of 8 warps leave (they spilled), so a block has 6 warps: two
+// blocks (109,056 bytes of weights each) and 12 warps fit an SM.
+//
+// Edges: a partial last tile reads rows >= n as zeros and stores none of
+// them.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -57,63 +70,15 @@
 
 namespace {
 
-// ---- decoder: [latent 29 | xyz 3] -> 128 -> 128 -> 96 -> [h | x] 128 -> 128
-//      -> sdf = tanh(lin4), std = 0.05 + 0.5 softplus(unc)
-constexpr int kIn = 32;
-constexpr int kLatent = 29;
-constexpr int kH = 128;
-constexpr int kH2 = 96;
-// Packed weights (ops/mlp.py pack_decoder): the hidden layers' matrices in
-// B-fragment order, each followed by its bias; then lin4 and unc as (128,)
-// columns, each followed by its bias.
-constexpr int kW0 = 0;
-constexpr int kB0 = kW0 + kIn * kH;
-constexpr int kW1 = kB0 + kH;
-constexpr int kB1 = kW1 + kH * kH;
-constexpr int kW2 = kB1 + kH;
-constexpr int kB2 = kW2 + kH * kH2;
-constexpr int kW3 = kB2 + kH2;
-constexpr int kB3 = kW3 + kH * kH;
-constexpr int kW4 = kB3 + kH;
-constexpr int kB4 = kW4 + kH;
-constexpr int kWu = kB4 + 1;
-constexpr int kBu = kWu + kH;
-constexpr int kDecoderSize = kBu + 1;
-static_assert(kDecoderSize == 49890, "decoder packing");
-
-constexpr int kDecoderWarps = 8;
-constexpr int kDecoderThreads = 32 * kDecoderWarps;
-constexpr int kDecoderSmem = kDecoderSize * sizeof(float);
-
-// ---- encoder (cnp SharedMLP, eval BatchNorm folded): 6 -> 32 -> 64 -> 256 -> 29
-constexpr int kEIn = 6;
-constexpr int kEInPad = 8;
-constexpr int kE1 = 32;
-constexpr int kE2 = 64;
-constexpr int kE3 = 256;
-constexpr int kEOut = 29;
-constexpr int kEW0 = 0;
-constexpr int kEB0 = kEW0 + kEIn * kE1;
-constexpr int kEW1 = kEB0 + kE1;
-constexpr int kEB1 = kEW1 + kE1 * kE2;
-constexpr int kEW2 = kEB1 + kE2;
-constexpr int kEB2 = kEW2 + kE2 * kE3;
-constexpr int kEW3 = kEB2 + kE3;
-constexpr int kEB3 = kEW3 + kE3 * kEOut;
-constexpr int kEncoderSize = kEB3 + kEOut;
-static_assert(kEncoderSize == 26429, "encoder packing");
-
-constexpr int kEncoderTile = 32;  // rows per block
-
 // ---------------------------------------------------------------------------
-// Decoder: 3xTF32 tensor-core layers.
+// 3xTF32 building blocks.
 // ---------------------------------------------------------------------------
 
 constexpr uint32_t kTf32Mask = 0xffffe000u;  // sign, exponent, 10 mantissa bits
 
 // TF32 rounding of cvt.rna.tf32.f32 (to nearest, ties away from zero, low 13
 // bits cleared) in two integer instructions; cvt compiles to more, with a
-// NaN test this kernel does not need.
+// NaN test these kernels do not need.
 __device__ __forceinline__ uint32_t tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & kTf32Mask;
 }
@@ -138,16 +103,33 @@ __device__ __forceinline__ void split_staged(float w, uint32_t& hi, uint32_t& lo
   lo = __float_as_uint(w - __uint_as_float(hi));
 }
 
-// Whether packed index i lies in a hidden layer's matrix.  Each range starts
-// and ends on a multiple of 4, for the 16-byte staging loads and the 8-byte
-// fragment and bias loads.
-__device__ __forceinline__ bool is_matrix(int i) {
-  return i < kB0 || (i >= kW1 && i < kB1) || (i >= kW2 && i < kB2) ||
-         (i >= kW3 && i < kB3);
+// Copies a packed weight buffer of L::kSize floats into shared memory,
+// staging the matrices' entries (L::is_matrix), 16 bytes a load where the
+// buffer allows it.  Each matrix range starts and ends on a multiple of 4.
+template <typename L, int THREADS>
+__device__ __forceinline__ void stage_weights(const float* __restrict__ wts, float* sw) {
+  int staged = 0;
+  if ((reinterpret_cast<uintptr_t>(wts) & 15) == 0) {
+    const float4* src = reinterpret_cast<const float4*>(wts);
+    float4* dst = reinterpret_cast<float4*>(sw);
+#pragma unroll 8
+    for (int i = threadIdx.x; i < L::kSize / 4; i += THREADS) {
+      float4 v = __ldg(src + i);
+      if (L::is_matrix(4 * i)) {
+        v.x = stage_weight(v.x);
+        v.y = stage_weight(v.y);
+        v.z = stage_weight(v.z);
+        v.w = stage_weight(v.w);
+      }
+      dst[i] = v;
+    }
+    staged = L::kSize / 4 * 4;
+  }
+  for (int i = staged + threadIdx.x; i < L::kSize; i += THREADS) {
+    const float v = __ldg(wts + i);
+    sw[i] = L::is_matrix(i) ? stage_weight(v) : v;
+  }
 }
-static_assert(kB0 % 4 == 0 && kW1 % 4 == 0 && kB1 % 4 == 0 && kW2 % 4 == 0 &&
-                  kB2 % 4 == 0 && kW3 % 4 == 0 && kB3 % 4 == 0,
-              "16-byte staging loads");
 
 // d += a b: one m16n8k8 TF32 product with f32 accumulation.
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
@@ -163,24 +145,12 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
 // 8b + 2t and 8b + 2t + 1; v[b][2], v[b][3] the same columns of row g + 8
 // (g = lane / 4, t = lane % 4).
 //
-// acc = bias + a W for one hidden layer, W in B-fragment order in shared
-// memory.  Rows of a tangent plane (GRAD, plane != 0) take no bias.
-template <int KB, int NB, bool GRAD>
-__device__ __forceinline__ void hidden(const float (&a)[KB][4], const float* w,
-                                       const float* b, int lane,
-                                       float (&acc)[NB][4]) {
+// acc += a W for one layer (or one K chunk of it), W (8 KB x 8 NB) in
+// B-fragment order in shared memory.
+template <int KB, int NB>
+__device__ __forceinline__ void accumulate(const float (&a)[KB][4], const float* w,
+                                           int lane, float (&acc)[NB][4]) {
   static_assert(NB % 4 == 0, "N blocks go in fours");
-  const int t = lane & 3;
-  const bool bias_row = !GRAD || ((lane >> 2) & 3) == 0;
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb) {
-    const float2 bb = bias_row ? *reinterpret_cast<const float2*>(b + 8 * nb + 2 * t)
-                               : make_float2(0.f, 0.f);
-    acc[nb][0] = bb.x;
-    acc[nb][1] = bb.y;
-    acc[nb][2] = bb.x;
-    acc[nb][3] = bb.y;
-  }
   const float2* wf = reinterpret_cast<const float2*>(w) + lane;
 #pragma unroll
   for (int kb = 0; kb < KB; ++kb) {
@@ -212,12 +182,34 @@ __device__ __forceinline__ void hidden(const float (&a)[KB][4], const float* w,
   }
 }
 
-// h = relu(acc).  In the gradient variant a tangent row is gated by its
-// point's activation row, which lane (lane & ~12) holds in the same register
-// (for an activation row that lane is the thread itself).
-template <int NB, bool GRAD>
+// acc = bias + a W for one layer.  Rows of a tangent plane (GRAD, plane != 0)
+// take no bias.
+template <int KB, int NB, bool GRAD>
+__device__ __forceinline__ void hidden(const float (&a)[KB][4], const float* w,
+                                       const float* b, int lane,
+                                       float (&acc)[NB][4]) {
+  const int t = lane & 3;
+  const bool bias_row = !GRAD || ((lane >> 2) & 3) == 0;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+    const float2 bb = bias_row ? *reinterpret_cast<const float2*>(b + 8 * nb + 2 * t)
+                               : make_float2(0.f, 0.f);
+    acc[nb][0] = bb.x;
+    acc[nb][1] = bb.y;
+    acc[nb][2] = bb.x;
+    acc[nb][3] = bb.y;
+  }
+  accumulate<KB, NB>(a, w, lane, acc);
+}
+
+// h = relu(acc) over the first NB blocks of h.  In the gradient variant a
+// tangent row is gated by its point's activation row, which lane
+// (lane & ~12) holds in the same register (for an activation row that lane
+// is the thread itself).
+template <int NB, bool GRAD, int NH>
 __device__ __forceinline__ void relu(const float (&acc)[NB][4], int lane,
-                                     float (&h)[kH / 8][4]) {
+                                     float (&h)[NH][4]) {
+  static_assert(NB <= NH, "relu output too small");
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb) {
 #pragma unroll
@@ -229,33 +221,69 @@ __device__ __forceinline__ void relu(const float (&acc)[NB][4], int lane,
   }
 }
 
+// The SM count, once `kernel` may take `smem` bytes of dynamic shared memory
+// (set on the first call of each launcher: `sms` is its own static).
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, int smem, int& sms) {
+  if (sms != 0) return cudaSuccess;
+  int dev = 0, count = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) sms = count;
+  return e;
+}
+
+// ---------------------------------------------------------------------------
+// Decoder: [latent 29 | xyz 3] -> 128 -> 128 -> 96 -> [h | x] 128 -> 128
+//          -> sdf = tanh(lin4), std = 0.05 + 0.5 softplus(unc)
+// ---------------------------------------------------------------------------
+
+constexpr int kIn = 32;
+constexpr int kLatent = 29;
+constexpr int kH = 128;
+constexpr int kH2 = 96;
+
+// Packed weights (ops/mlp.py pack_decoder): the hidden layers' matrices in
+// B-fragment order, each followed by its bias; then lin4 and unc as (128,)
+// columns, each followed by its bias.
+struct DecoderLayout {
+  static constexpr int kW0 = 0;
+  static constexpr int kB0 = kW0 + kIn * kH;
+  static constexpr int kW1 = kB0 + kH;
+  static constexpr int kB1 = kW1 + kH * kH;
+  static constexpr int kW2 = kB1 + kH;
+  static constexpr int kB2 = kW2 + kH * kH2;
+  static constexpr int kW3 = kB2 + kH2;
+  static constexpr int kB3 = kW3 + kH * kH;
+  static constexpr int kW4 = kB3 + kH;
+  static constexpr int kB4 = kW4 + kH;
+  static constexpr int kWu = kB4 + 1;
+  static constexpr int kBu = kWu + kH;
+  static constexpr int kSize = kBu + 1;
+  __device__ static bool is_matrix(int i) {
+    return i < kB0 || (i >= kW1 && i < kB1) || (i >= kW2 && i < kB2) ||
+           (i >= kW3 && i < kB3);
+  }
+};
+using DL = DecoderLayout;
+static_assert(DL::kSize == 49890, "decoder packing");
+static_assert(DL::kB0 % 4 == 0 && DL::kW1 % 4 == 0 && DL::kB1 % 4 == 0 &&
+                  DL::kW2 % 4 == 0 && DL::kB2 % 4 == 0 && DL::kW3 % 4 == 0 &&
+                  DL::kB3 % 4 == 0,
+              "16-byte staging loads");
+constexpr int kDecoderSmem = DL::kSize * sizeof(float);
+constexpr int kDecoderWarps = 8;
+constexpr int kDecoderThreads = 32 * kDecoderWarps;
+
 template <bool GRAD>
 __global__ void __launch_bounds__(kDecoderThreads, 1)
     decoder_kernel(const float* __restrict__ x, const float* __restrict__ wts,
                    int n, float* __restrict__ out, float* __restrict__ grad) {
   extern __shared__ __align__(16) float sw[];
-  // Stage the weights, 16 bytes a load where the buffer allows it.
-  int staged = 0;
-  if ((reinterpret_cast<uintptr_t>(wts) & 15) == 0) {
-    const float4* src = reinterpret_cast<const float4*>(wts);
-    float4* dst = reinterpret_cast<float4*>(sw);
-#pragma unroll 8
-    for (int i = threadIdx.x; i < kDecoderSize / 4; i += kDecoderThreads) {
-      float4 v = __ldg(src + i);
-      if (is_matrix(4 * i)) {
-        v.x = stage_weight(v.x);
-        v.y = stage_weight(v.y);
-        v.z = stage_weight(v.z);
-        v.w = stage_weight(v.w);
-      }
-      dst[i] = v;
-    }
-    staged = kDecoderSize / 4 * 4;
-  }
-  for (int i = staged + threadIdx.x; i < kDecoderSize; i += kDecoderThreads) {
-    const float v = __ldg(wts + i);
-    sw[i] = is_matrix(i) ? stage_weight(v) : v;
-  }
+  stage_weights<DL, kDecoderThreads>(wts, sw);
   __syncthreads();
 
   constexpr int P = GRAD ? 4 : 16;  // points per 16-row tile
@@ -293,13 +321,13 @@ __global__ void __launch_bounds__(kDecoderThreads, 1)
 
     float h[kH / 8][4];
     float acc[kH / 8][4];
-    hidden<kIn / 8, kH / 8, GRAD>(xf, sw + kW0, sw + kB0, lane, acc);
+    hidden<kIn / 8, kH / 8, GRAD>(xf, sw + DL::kW0, sw + DL::kB0, lane, acc);
     relu<kH / 8, GRAD>(acc, lane, h);
-    hidden<kH / 8, kH / 8, GRAD>(h, sw + kW1, sw + kB1, lane, acc);
+    hidden<kH / 8, kH / 8, GRAD>(h, sw + DL::kW1, sw + DL::kB1, lane, acc);
     relu<kH / 8, GRAD>(acc, lane, h);
     {
       float acc2[kH2 / 8][4];
-      hidden<kH / 8, kH2 / 8, GRAD>(h, sw + kW2, sw + kB2, lane, acc2);
+      hidden<kH / 8, kH2 / 8, GRAD>(h, sw + DL::kW2, sw + DL::kB2, lane, acc2);
       relu<kH2 / 8, GRAD>(acc2, lane, h);
     }
     // latent_in at lin3: the input re-fed into columns 96..127
@@ -308,7 +336,7 @@ __global__ void __launch_bounds__(kDecoderThreads, 1)
 #pragma unroll
       for (int i = 0; i < 4; ++i) h[kH2 / 8 + kb][i] = xf[kb][i];
     }
-    hidden<kH / 8, kH / 8, GRAD>(h, sw + kW3, sw + kB3, lane, acc);
+    hidden<kH / 8, kH / 8, GRAD>(h, sw + DL::kW3, sw + DL::kB3, lane, acc);
     relu<kH / 8, GRAD>(acc, lane, h);
 
     // Heads in f32: lin4 (the sdf, or a tangent's d sdf) and unc.
@@ -316,8 +344,8 @@ __global__ void __launch_bounds__(kDecoderThreads, 1)
 #pragma unroll
     for (int nb = 0; nb < kH / 8; ++nb) {
       const int k = 8 * nb + 2 * t;
-      const float w4a = sw[kW4 + k], w4b = sw[kW4 + k + 1];
-      const float wua = sw[kWu + k], wub = sw[kWu + k + 1];
+      const float w4a = sw[DL::kW4 + k], w4b = sw[DL::kW4 + k + 1];
+      const float wua = sw[DL::kWu + k], wub = sw[DL::kWu + k + 1];
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         d4[half] = fmaf(h[nb][2 * half + 1], w4b, fmaf(h[nb][2 * half], w4a, d4[half]));
@@ -334,14 +362,14 @@ __global__ void __launch_bounds__(kDecoderThreads, 1)
       }
       // a tangent row takes the sdf of its point's activation row
       const float pre = GRAD ? __shfl_sync(0xffffffffu, d4[half], lane & ~12) : d4[half];
-      sdf[half] = tanhf(pre + sw[kB4]);
+      sdf[half] = tanhf(pre + sw[DL::kB4]);
     }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = r[half];
       if (t != 0 || row >= n) continue;
       if (s == 0) {
-        const float z = du[half] + sw[kBu];
+        const float z = du[half] + sw[DL::kBu];
         const float softplus = fmaxf(z, 0.f) + log1pf(expf(-fabsf(z)));
         out[2 * (size_t)row] = sdf[half];
         out[2 * (size_t)row + 1] = 0.05f + 0.5f * softplus;
@@ -356,18 +384,9 @@ template <bool GRAD>
 int launch_decoder(const float* x, const float* wts, int n, float* out, float* grad,
                    void* stream) {
   if (n <= 0) return 0;
-  static int sms = 0;  // per instantiation: set once, with the smem attribute
-  if (sms == 0) {
-    int dev = 0, count = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(decoder_kernel<GRAD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kDecoderSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    sms = count;
-  }
+  static int sms = 0;  // per instantiation
+  const cudaError_t e = prepare(decoder_kernel<GRAD>, kDecoderSmem, sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
   constexpr int P = GRAD ? 4 : 16;
   const int tiles = (n + P - 1) / P;
   const int wanted = (tiles + kDecoderWarps - 1) / kDecoderWarps;
@@ -378,118 +397,128 @@ int launch_decoder(const float* x, const float* wts, int n, float* out, float* g
 }
 
 // ---------------------------------------------------------------------------
-// Encoder: f32 CUDA cores.
+// Encoder: 6 -> 32 -> 64 -> 256 -> 29, ReLU after the first three.
 // ---------------------------------------------------------------------------
 
-// acc[p] += sum_{k < IN} buf[p * LD + k] * w[k * OUT + j] over the P rows.
-template <int P, int IN, int LD, int OUT>
-__device__ __forceinline__ void accumulate(const float* buf,
-                                           const float* __restrict__ w, int j,
-                                           float (&acc)[P]) {
-  static_assert(IN % 4 == 0 && LD % 4 == 0, "float4 activation reads");
-#pragma unroll 2
-  for (int k = 0; k < IN; k += 4) {
-    const float w0 = __ldg(w + (k + 0) * OUT + j);
-    const float w1 = __ldg(w + (k + 1) * OUT + j);
-    const float w2 = __ldg(w + (k + 2) * OUT + j);
-    const float w3 = __ldg(w + (k + 3) * OUT + j);
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const float4 a = *reinterpret_cast<const float4*>(buf + p * LD + k);
-      float v = acc[p];
-      v = fmaf(a.x, w0, v);
-      v = fmaf(a.y, w1, v);
-      v = fmaf(a.z, w2, v);
-      v = fmaf(a.w, w3, v);
-      acc[p] = v;
-    }
+constexpr int kEIn = 6;
+constexpr int kEK0 = 8;  // the first layer's K, padded
+constexpr int kE1 = 32;
+constexpr int kE2 = 64;
+constexpr int kE3 = 256;
+constexpr int kEOut = 29;
+constexpr int kEOutPad = 32;
+constexpr int kEChunk = 64;  // columns of the 256-wide layer per chunk
+
+// Packed weights (ops/mlp.py pack_encoder): each layer's matrix in
+// B-fragment order (the first padded to 8 rows, the last to 32 columns;
+// the 256-wide layer as four (64, 64) column chunks one after the other),
+// each followed by its bias (the last padded to 32).
+struct EncoderLayout {
+  static constexpr int kW0 = 0;
+  static constexpr int kB0 = kW0 + kEK0 * kE1;
+  static constexpr int kW1 = kB0 + kE1;
+  static constexpr int kB1 = kW1 + kE1 * kE2;
+  static constexpr int kW2 = kB1 + kE2;
+  static constexpr int kB2 = kW2 + kE2 * kE3;
+  static constexpr int kW3 = kB2 + kE3;
+  static constexpr int kB3 = kW3 + kE3 * kEOutPad;
+  static constexpr int kSize = kB3 + kEOutPad;
+  __device__ static bool is_matrix(int i) {
+    return i < kB0 || (i >= kW1 && i < kB1) || (i >= kW2 && i < kB2) ||
+           (i >= kW3 && i < kB3);
   }
-}
+};
+using EL = EncoderLayout;
+static_assert(EL::kSize == 27264, "encoder packing");
+static_assert(EL::kB0 % 4 == 0 && EL::kW1 % 4 == 0 && EL::kB1 % 4 == 0 &&
+                  EL::kW2 % 4 == 0 && EL::kB2 % 4 == 0 && EL::kW3 % 4 == 0 &&
+                  EL::kB3 % 4 == 0,
+              "16-byte staging loads");
+constexpr int kEncoderSmem = EL::kSize * sizeof(float);  // 109,056 bytes
+constexpr int kEncoderBlocksPerSm = 2;
+constexpr int kEncoderWarps = 6;
+constexpr int kEncoderThreads = 32 * kEncoderWarps;
 
-// Pre-activations of one layer for the thread's output j (bias included).
-template <int P, int IN, int LD, int OUT>
-__device__ __forceinline__ void dense(const float* buf,
-                                      const float* __restrict__ w,
-                                      const float* __restrict__ b, int j,
-                                      float (&acc)[P]) {
-  const float bj = __ldg(b + j);
-#pragma unroll
-  for (int p = 0; p < P; ++p) acc[p] = bj;
-  accumulate<P, IN, LD, OUT>(buf, w, j, acc);
-}
-
-// Writes relu(acc) into column j.
-template <int P, int LD>
-__device__ __forceinline__ void store_relu(float* buf, int j, const float (&acc)[P]) {
-#pragma unroll
-  for (int p = 0; p < P; ++p) buf[p * LD + j] = acc[p] > 0.f ? acc[p] : 0.f;
-}
-
-template <int P>
-__global__ void __launch_bounds__(kE3)
+__global__ void __launch_bounds__(kEncoderThreads, kEncoderBlocksPerSm)
     encoder_kernel(const float* __restrict__ x, const float* __restrict__ wts,
                    int n, float* __restrict__ out) {
-  __shared__ __align__(16) float xs[P * kEInPad];
-  __shared__ __align__(16) float buf[P * kE3];
-  const int j = threadIdx.x;
-  const int row0 = blockIdx.x * P;
-  for (int i = j; i < P * kEIn; i += kE3) {
-    const int p = i / kEIn;
-    xs[p * kEInPad + i % kEIn] = row0 + p < n ? x[(size_t)row0 * kEIn + i] : 0.f;
-  }
+  extern __shared__ __align__(16) float sw[];
+  stage_weights<EL, kEncoderThreads>(wts, sw);
   __syncthreads();
-  float acc[P];
-  // layer0: 6 -> 32 (scalar reads: 6 is no multiple of 4)
-  if (j < kE1) {
-    const float bj = __ldg(wts + kEB0 + j);
+
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int tiles = (n + 15) / 16;
+  for (int tile = blockIdx.x * kEncoderWarps + (threadIdx.x >> 5); tile < tiles;
+       tile += gridDim.x * kEncoderWarps) {
+    const int r[2] = {tile * 16 + g, tile * 16 + g + 8};
+    // The input in A layout: columns 2t, 2t + 1 of rows g and g + 8; the
+    // padded columns 6 and 7 (t = 3) are zero.
+    float xf[1][4];
 #pragma unroll
-    for (int p = 0; p < P; ++p) acc[p] = bj;
-    for (int k = 0; k < kEIn; ++k) {
-      const float w = __ldg(wts + kEW0 + k * kE1 + j);
-#pragma unroll
-      for (int p = 0; p < P; ++p) acc[p] = fmaf(xs[p * kEInPad + k], w, acc[p]);
+    for (int i = 0; i < 4; ++i) {
+      const int row = r[i >> 1];
+      const int c = 2 * t + (i & 1);
+      xf[0][i] = (row < n && c < kEIn) ? __ldg(x + (size_t)row * kEIn + c) : 0.f;
     }
-    store_relu<P, kE3>(buf, j, acc);
-  }
-  __syncthreads();
-  // layer1: 32 -> 64
-  if (j < kE2) dense<P, kE1, kE3, kE2>(buf, wts + kEW1, wts + kEB1, j, acc);
-  __syncthreads();
-  if (j < kE2) store_relu<P, kE3>(buf, j, acc);
-  __syncthreads();
-  // layer2: 64 -> 256
-  dense<P, kE2, kE3, kE3>(buf, wts + kEW2, wts + kEB2, j, acc);
-  __syncthreads();
-  store_relu<P, kE3>(buf, j, acc);
-  __syncthreads();
-  // layer3: 256 -> 29, no activation.  Only 29 outputs, so the reduction is
-  // split: 8 neighbouring lanes share output o and take every 8th input,
-  // then combine with warp shuffles.
-  const int o = j >> 3;
-  const int slice = j & 7;
-  float a[P];
+    float acc1[kE1 / 8][4], h1[kE1 / 8][4];
+    hidden<1, kE1 / 8, false>(xf, sw + EL::kW0, sw + EL::kB0, lane, acc1);
+    relu<kE1 / 8, false>(acc1, lane, h1);
+    float acc2[kE2 / 8][4], h2[kE2 / 8][4];
+    hidden<kE1 / 8, kE2 / 8, false>(h1, sw + EL::kW1, sw + EL::kB1, lane, acc2);
+    relu<kE2 / 8, false>(acc2, lane, h2);
+
+    // The 256-wide layer in 64-column chunks, each at once the last layer's
+    // K chunk (rows 64c .. 64c + 63 of its matrix).
+    float acc4[kEOutPad / 8][4];
 #pragma unroll
-  for (int p = 0; p < P; ++p) a[p] = 0.f;
-  if (o < kEOut) {
-    for (int k = slice; k < kE3; k += 8) {
-      const float w = __ldg(wts + kEW3 + k * kEOut + o);
+    for (int nb = 0; nb < kEOutPad / 8; ++nb) {
+      const float2 bb = *reinterpret_cast<const float2*>(sw + EL::kB3 + 8 * nb + 2 * t);
+      acc4[nb][0] = bb.x;
+      acc4[nb][1] = bb.y;
+      acc4[nb][2] = bb.x;
+      acc4[nb][3] = bb.y;
+    }
+#pragma unroll 1
+    for (int c = 0; c < kE3 / kEChunk; ++c) {
+      float acc3[kEChunk / 8][4];
+      hidden<kE2 / 8, kEChunk / 8, false>(h2, sw + EL::kW2 + c * kE2 * kEChunk,
+                                          sw + EL::kB2 + c * kEChunk, lane, acc3);
+      relu<kEChunk / 8, false>(acc3, lane, acc3);
+      accumulate<kEChunk / 8, kEOutPad / 8>(acc3, sw + EL::kW3 + c * kEChunk * kEOutPad,
+                                           lane, acc4);
+    }
+
 #pragma unroll
-      for (int p = 0; p < P; ++p) a[p] = fmaf(buf[p * kE3 + k], w, a[p]);
+    for (int half = 0; half < 2; ++half) {
+      const int row = r[half];
+      if (row >= n) continue;
+      float* o = out + (size_t)row * kEOut;
+#pragma unroll
+      for (int nb = 0; nb < kEOutPad / 8; ++nb) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = 8 * nb + 2 * t + j;
+          if (c < kEOut) o[c] = acc4[nb][2 * half + j];
+        }
+      }
     }
   }
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    a[p] += __shfl_xor_sync(0xffffffffu, a[p], 4);
-    a[p] += __shfl_xor_sync(0xffffffffu, a[p], 2);
-    a[p] += __shfl_xor_sync(0xffffffffu, a[p], 1);
-  }
-  if (o < kEOut && slice == 0) {
-    const float bo = __ldg(wts + kEB3 + o);
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      if (row0 + p < n) out[(size_t)(row0 + p) * kEOut + o] = a[p] + bo;
-    }
-  }
+}
+
+int launch_encoder(const float* x, const float* wts, int n, float* out, void* stream) {
+  if (n <= 0) return 0;
+  static int sms = 0;
+  const cudaError_t e = prepare(encoder_kernel, kEncoderSmem, sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = (n + 15) / 16;
+  const int wanted = (tiles + kEncoderWarps - 1) / kEncoderWarps;
+  const int most = kEncoderBlocksPerSm * sms;
+  const int blocks = wanted < most ? wanted : most;
+  encoder_kernel<<<blocks, kEncoderThreads, kEncoderSmem, static_cast<cudaStream_t>(stream)>>>(
+      x, wts, n, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -508,14 +537,10 @@ int decoder_forward_grad(const float* x, const float* wts, int n, float* out,
   return launch_decoder<true>(x, wts, n, out, grad, stream);
 }
 
-// x (n, 6) f32, wts packed encoder (26,429 f32) -> out (n, 29).
+// x (n, 6) f32, wts packed encoder (27,264 f32) -> out (n, 29).
 int encoder_forward(const float* x, const float* wts, int n, float* out,
                     void* stream) {
-  if (n <= 0) return 0;
-  const int blocks = (n + kEncoderTile - 1) / kEncoderTile;
-  encoder_kernel<kEncoderTile>
-      <<<blocks, kE3, 0, static_cast<cudaStream_t>(stream)>>>(x, wts, n, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_encoder(x, wts, n, out, stream);
 }
 
 }  // extern "C"

@@ -27,7 +27,7 @@ class Encoder(nn.Module):
         for i, (w, b) in enumerate(mats):
             self.register_buffer(f"w{i}", w.contiguous())
             self.register_buffer(f"b{i}", b.contiguous())
-        self.register_buffer("packed", mlp.pack(mats))
+        self.register_buffer("packed", mlp.pack_encoder(mats))
 
     @property
     def mats(self):

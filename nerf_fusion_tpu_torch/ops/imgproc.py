@@ -17,7 +17,9 @@ Counterparts of the JAX package's ``ops/imgproc.py``:
 
 The TPU layout tricks of the JAX versions (one-hot lane-selection matmuls
 for strided slices) are plain slices here: they select the same values.
-The warp gathers go through the row-gather kernel (``ops.gather``).
+The gathers go through the row-gather kernel (``ops.gather``).  The two
+photometric terms are the first half of the plain version of the tracker's
+photometric kernel (``ops.photometric``), which the tracker calls.
 """
 
 from __future__ import annotations
@@ -356,8 +358,9 @@ def select_photometric_pixels(cur_intensity, cur_depth, cur_dIdxy, k: int,
     v = (idx // w).to(torch.float32)
     rows = torch.stack([cur_intensity.reshape(-1), cur_depth.reshape(-1),
                         gx.reshape(-1), gy.reshape(-1)], dim=-1)
-    got = gather.row_gather(rows, idx.to(torch.int32))
-    return u, v, got[:, 0], got[:, 1], got[:, 2], got[:, 3], valid
+    # one contiguous vector per column: the photometric kernel reads them so
+    cols = gather.row_gather(rows, idx.to(torch.int32)).T.contiguous()
+    return u, v, cols[0], cols[1], cols[2], cols[3], valid
 
 
 def rgb_odometry_sparse(prev_rows, W: int, H: int, pix, fx, fy, cx, cy,

@@ -2,9 +2,8 @@
 
 Counterpart of the JAX package's ``ops/pallas_mlp.py``.  The kernels live
 in ``csrc/mlp.cu``; this module folds the weights, packs them in the
-kernels' layouts (``pack_decoder``: the tensor cores' fragment order;
-``pack``: plain (in, out) matrices for the encoder), and exposes three
-wrappers:
+kernels' layout (``pack_decoder``, ``pack_encoder``: the tensor cores'
+fragment order), and exposes three wrappers:
 
   * ``decoder_forward``       (N, 32) -> (N, 2) [sdf, std]
   * ``decoder_forward_grad``  (N, 32) -> (N, 2), (N, 3) d sdf / d x[:, 29:32]
@@ -27,7 +26,7 @@ DECODER_LATENT = 29
 DECODER_PACKED = 49890
 ENCODER_IN = 6
 ENCODER_OUT = 29
-ENCODER_PACKED = 26429
+ENCODER_PACKED = 27264
 
 
 def fold_decoder_weights(params: dict) -> list:
@@ -71,13 +70,8 @@ def fold_encoder_weights(params: dict, bn_state: dict, n_layers: int,
     return mats
 
 
-def pack(mats) -> torch.Tensor:
-    """[(W, b), ...] -> one flat f32 buffer, the encoder kernel's weight layout."""
-    return torch.cat([t.reshape(-1) for wb in mats for t in wb]).contiguous()
-
-
 def _fragments(w: torch.Tensor) -> torch.Tensor:
-    """(K, N) -> the tensor cores' B-fragment order of the decoder kernel:
+    """(K, N) -> the tensor cores' B-fragment order of the MLP kernels:
     element (kb, nb, g, t, j) = W[8kb + 2t + j, 8nb + g], so lane 4g + t of
     a warp loads its two values of K block kb, N block nb as one float2, and
     K positions t, t + 4 of the fragment hold rows 2t, 2t + 1 of the block:
@@ -94,6 +88,29 @@ def pack_decoder(mats) -> torch.Tensor:
     for i, (w, b) in enumerate(mats):
         parts += [_fragments(w) if i < 4 else w.reshape(-1), b.reshape(-1)]
     return torch.cat(parts).contiguous()
+
+
+ENCODER_CHUNK = 64      # columns of the 256-wide layer per chunk in the kernel
+
+
+def pack_encoder(mats) -> torch.Tensor:
+    """Folded encoder [(W, b)] (6-32-64-256-29) -> the encoder kernel's flat
+    f32 buffer: each layer's matrix in B-fragment order (``_fragments``)
+    followed by its bias.  The first matrix is padded to 8 rows and the
+    last to 32 columns (bias too) with zeros; the 256-wide layer is stored
+    as its four (64, 64) column chunks one after the other, the order in
+    which the kernel streams it."""
+    (w0, b0), (w1, b1), (w2, b2), (w3, b3) = mats
+    w0p = torch.zeros((8, w0.shape[1]), dtype=torch.float32)
+    w0p[:w0.shape[0]] = w0
+    w3p = torch.zeros((w3.shape[0], 32), dtype=torch.float32)
+    w3p[:, :w3.shape[1]] = w3
+    b3p = torch.zeros(32, dtype=torch.float32)
+    b3p[:b3.shape[0]] = b3
+    chunks = [_fragments(w2[:, c:c + ENCODER_CHUNK])
+              for c in range(0, w2.shape[1], ENCODER_CHUNK)]
+    return torch.cat([_fragments(w0p), b0, _fragments(w1), b1, *chunks, b2,
+                      _fragments(w3p), b3p]).contiguous()
 
 
 def _softplus(z):

@@ -1,0 +1,168 @@
+"""The tracker's photometric term in one kernel: wrapper and plain version.
+
+``photometric_hg`` returns the normal equations of the photometric term at
+one pyramid level, (H (6, 6), g (6,), energy (), count ()), for a relative
+pose given as ``krkinv`` = K R K^-1 and ``kt`` = K t:
+
+  * ``Dense(intensity, depth, gradient)``: the current level's planes,
+    evaluated at every ``stride``-th pixel (``imgproc.rgb_odometry``);
+  * ``Sparse(W, H, pix)``: a selected pixel set, ``pix`` from
+    ``imgproc.select_photometric_pixels`` (``imgproc.rgb_odometry_sparse``).
+
+The residual f and the warp Jacobian J (negated: the warp's is
+d / d(-xi)) are weighted by the robust kernel on the valid pixels and
+scaled by ``rgb_weight / max(count, 1)``: H = (J w) J^T, g = J (w f),
+energy = sum f w f.
+
+The kernel (``csrc/photometric.cu``) does the warp, the row gather from the
+previous frame's packed rows, the residual, the Jacobian, the weights and
+the reduction in one launch; it replaces the row gather of the JAX
+package's probe (``tools/gather_exp3.py`` ``pallas_gather``) where the
+tracker runs it.  ``photometric_hg_plain`` is the plain PyTorch
+composition it replaces.  The wrapper launches the kernel for CUDA tensors
+(or raises) and takes the plain version only for CPU tensors; it counts
+its launches in ``photometric_hg.launches``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import cuda_build, imgproc
+
+ROBUST_KERNELS = {None: 0, "huber": 1, "tukey": 2}
+MAX_BLOCKS = 1024       # block partials the workspace holds (the grid is <= the SMs)
+_OUT = 44               # H (36), g (6), energy, count
+
+
+class Dense(NamedTuple):
+    intensity: torch.Tensor     # (H, W)
+    depth: torch.Tensor         # (H, W)
+    gradient: torch.Tensor      # (2, H, W)
+
+
+class Sparse(NamedTuple):
+    W: int
+    H: int
+    pix: tuple                  # select_photometric_pixels(...)
+
+
+def robust_weight(x, kernel: str, k: float):
+    if kernel is None:
+        return torch.ones_like(x)
+    ax = torch.abs(x)
+    if kernel == "huber":
+        return torch.where(ax > k, k / torch.clamp_min(ax, 1e-12), torch.ones_like(x))
+    if kernel == "tukey":
+        w = (1.0 - (x / k) ** 2) ** 2
+        return torch.where(ax <= k, w, torch.zeros_like(x))
+    raise NotImplementedError(kernel)
+
+
+def photometric_hg_plain(prev_rows, level, krkinv, kt, fx, fy, cx, cy, *,
+                         min_grad_scale: float, max_depth_delta: float, stride: int,
+                         robust_kernel, robust_k: float, rgb_weight):
+    """The photometric term in plain PyTorch: (H, g, energy, count)."""
+    if isinstance(level, Sparse):
+        f, J, ok = imgproc.rgb_odometry_sparse(prev_rows, level.W, level.H, level.pix,
+                                               fx, fy, cx, cy, krkinv, kt,
+                                               max_depth_delta)
+    else:
+        f, J, ok = imgproc.rgb_odometry(prev_rows, level.intensity, level.depth,
+                                        level.gradient, fx, fy, cx, cy, krkinv, kt,
+                                        min_grad_scale, max_depth_delta, stride=stride)
+    J = -J  # the warp Jacobian is d/d(-xi)
+    m = ok.to(f.dtype)
+    w = robust_weight(f, robust_kernel, robust_k) * m
+    count = m.sum()
+    scale = rgb_weight / torch.clamp_min(count, 1.0)
+    J2, f2, w2 = J.reshape(6, -1), f.reshape(-1), w.reshape(-1)
+    H = ((J2 * w2[None]) @ J2.T) * scale
+    g = (J2 @ (w2 * f2)) * scale
+    energy = torch.sum(f2 * (w2 * f2)) * scale
+    return H, g, energy, count
+
+
+_WORKSPACE: dict = {}
+
+
+def _workspace(device):
+    """Per device: the block partials and the ticket (zero between launches;
+    the kernel's last block resets it)."""
+    ws = _WORKSPACE.get(device)
+    if ws is None:
+        ws = (torch.empty(MAX_BLOCKS * 32, dtype=torch.float32, device=device),
+              torch.zeros(1, dtype=torch.int32, device=device))
+        _WORKSPACE[device] = ws
+    return ws
+
+
+def _check_f32(what, name, t, shape):
+    if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"{what}: {name} must be a contiguous float32 {tuple(shape)} "
+                         f"tensor, got {tuple(t.shape)} {t.dtype}")
+
+
+def photometric_hg(prev_rows, level, krkinv, kt, fx, fy, cx, cy, *,
+                   min_grad_scale: float, max_depth_delta: float, stride: int,
+                   robust_kernel, robust_k: float, rgb_weight: float):
+    """The photometric term at one level: (H (6, 6), g (6,), energy (), count ())."""
+    what = "photometric_hg"
+    if robust_kernel not in ROBUST_KERNELS:
+        raise NotImplementedError(robust_kernel)
+    if isinstance(level, Sparse):
+        W, H = int(level.W), int(level.H)
+        vecs, valid = tuple(level.pix[:6]), level.pix[6]
+        n = vecs[0].shape[0]
+        for name, t in zip(("u", "v", "i1", "d1", "gx", "gy"), vecs):
+            _check_f32(what, name, t, (n,))
+        if valid.dtype != torch.bool or tuple(valid.shape) != (n,) or not valid.is_contiguous():
+            raise ValueError(f"{what}: valid must be a contiguous bool ({n},) tensor")
+        vecs += (valid,)
+    elif isinstance(level, Dense):
+        H, W = level.intensity.shape
+        vecs = tuple(level)
+        for name, t, shape in zip(("intensity", "depth", "gradient"), vecs,
+                                  ((H, W), (H, W), (2, H, W))):
+            _check_f32(what, name, t, shape)
+        if int(stride) < 1:
+            raise ValueError(f"{what}: stride must be >= 1, got {stride}")
+    else:
+        raise ValueError(f"{what}: level must be Dense or Sparse, got {type(level)}")
+    _check_f32(what, "prev_rows", prev_rows, (H * W, 2))
+    _check_f32(what, "krkinv", krkinv, (3, 3))
+    _check_f32(what, "kt", kt, (3,))
+    if H * W >= 2 ** 31:
+        raise ValueError(f"{what}: more than 2^31 - 1 source rows")
+    if cuda_build.on_cpu(what, prev_rows, krkinv, kt, *vecs):
+        return photometric_hg_plain(
+            prev_rows, level, krkinv, kt, fx, fy, cx, cy, min_grad_scale=min_grad_scale,
+            max_depth_delta=max_depth_delta, stride=stride, robust_kernel=robust_kernel,
+            robust_k=robust_k, rgb_weight=rgb_weight)
+    if prev_rows.data_ptr() % 8:
+        raise ValueError(f"{what}: prev_rows is not 8-byte aligned")
+    dev = prev_rows.device
+    partials, ticket = _workspace(dev)
+    out = torch.empty(_OUT, dtype=torch.float32, device=dev)
+    lib = cuda_build.load("photometric")
+    scalars = (float(fx), float(fy), float(cx), float(cy))
+    tail = (ROBUST_KERNELS[robust_kernel], float(robust_k), float(rgb_weight),
+            partials.data_ptr(), MAX_BLOCKS, ticket.data_ptr(), out.data_ptr(),
+            cuda_build.stream_ptr(dev))
+    if isinstance(level, Sparse):
+        status = lib.photometric_hg_sparse(
+            prev_rows.data_ptr(), W, H, *(t.data_ptr() for t in vecs), n,
+            krkinv.data_ptr(), kt.data_ptr(), *scalars, float(max_depth_delta), *tail)
+    else:
+        status = lib.photometric_hg_dense(
+            prev_rows.data_ptr(), W, H, *(t.data_ptr() for t in vecs), int(stride),
+            krkinv.data_ptr(), kt.data_ptr(), *scalars, float(min_grad_scale),
+            float(max_depth_delta), *tail)
+    cuda_build.check(status, what)
+    photometric_hg.launches += 1
+    return out[:36].view(6, 6), out[36:42], out[42], out[43]
+
+
+photometric_hg.launches = 0

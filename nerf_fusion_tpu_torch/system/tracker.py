@@ -12,7 +12,9 @@ the same ``iters_used``.
 SDF residuals are ``r = sdf(T p) / std`` with std held constant; the
 position gradient comes from the decoder kernel's forward-mode input
 gradient through ``torch.autograd.grad``, chain-ruled to the twist of the
-last pose: J = [dS/dx R_last, (delta p) x (dS/dx R_last)].
+last pose: J = [dS/dx R_last, (delta p) x (dS/dx R_last)].  The
+photometric term of a level is one ``ops.photometric.photometric_hg``
+call: one kernel launch on the card.
 """
 
 from __future__ import annotations
@@ -25,21 +27,9 @@ import torch
 from ..utils import se3_torch as st
 from ..utils.config import dict_to_args
 from ..utils.se3 import Isometry
-from ..ops import imgproc
+from ..ops import imgproc, photometric
 from .frontend import preprocess_frame
 from .map import get_sdf
-
-
-def _robust_weight(x, kernel: str, k: float):
-    if kernel is None:
-        return torch.ones_like(x)
-    ax = torch.abs(x)
-    if kernel == "huber":
-        return torch.where(ax > k, k / torch.clamp_min(ax, 1e-12), torch.ones_like(x))
-    if kernel == "tukey":
-        w = (1.0 - (x / k) ** 2) ** 2
-        return torch.where(ax <= k, w, torch.zeros_like(x))
-    raise NotImplementedError(kernel)
 
 
 class TrackerConfig(NamedTuple):
@@ -118,7 +108,7 @@ def _sdf_Hg(map_state, map_cfg, decoder, tcfg: TrackerConfig,
                       q[2] * La[0] - q[0] * La[2],
                       q[0] * La[1] - q[1] * La[0]], 0)
     J = torch.cat([La, Lb], dim=0)                            # (6, M)
-    w = _robust_weight(r, tcfg.sdf_robust_kernel, tcfg.sdf_robust_k) * m
+    w = photometric.robust_weight(r, tcfg.sdf_robust_kernel, tcfg.sdf_robust_k) * m
     scale = 1.0 / torch.clamp_min(m.sum(), 1.0)
     H = ((J * w[None, :]) @ J.T) * scale
     g = (J @ (w * r)) * scale
@@ -139,33 +129,27 @@ def _intrinsics(fx, fy, cx, cy, device):
 
 
 def _rgb_Hg(tcfg: TrackerConfig, level_data, fx, fy, cx, cy, dR, dt, rgb_weight,
-            sparse=None):
-    """Photometric term at one pyramid level.
+            sparse=None, K=None):
+    """Photometric term at one pyramid level: one ``photometric_hg`` call.
 
     ``level_data``: (prev_rows (H*W, 2), cur intensity, cur depth, cur
     gradient) for the dense warp.  ``sparse``: optional (prev_rows, W, H,
-    pix) from the once-per-frame pixel selection; replaces the dense warp."""
-    K, Kinv = _intrinsics(fx, fy, cx, cy, dR.device)
-    krkinv = K @ dR @ Kinv
-    kt = K @ dt
+    pix) from the once-per-frame pixel selection; replaces the dense warp.
+    ``K``: the level's (K, K^-1) from ``_intrinsics``, built here if None."""
+    Km, Kinv = _intrinsics(fx, fy, cx, cy, dR.device) if K is None else K
+    krkinv = Km @ dR @ Kinv
+    kt = Km @ dt
     if sparse is not None:
         prev_rows, W, H_, pix = sparse
-        f, J, ok = imgproc.rgb_odometry_sparse(prev_rows, W, H_, pix, fx, fy, cx, cy,
-                                               krkinv, kt, tcfg.max_depth_delta)
+        level = photometric.Sparse(W, H_, pix)
     else:
         prev_rows, cur_i, cur_d, cur_g = level_data
-        f, J, ok = imgproc.rgb_odometry(prev_rows, cur_i, cur_d, cur_g,
-                                        fx, fy, cx, cy, krkinv, kt,
-                                        tcfg.min_grad_scale, tcfg.max_depth_delta,
-                                        stride=tcfg.rgb_stride)
-    J = -J  # the warp Jacobian is d/d(-xi)
-    m = ok.to(f.dtype)
-    w = _robust_weight(f, tcfg.rgb_robust_kernel, tcfg.rgb_robust_k) * m
-    scale = rgb_weight / torch.clamp_min(m.sum(), 1.0)
-    J2, f2, w2 = J.reshape(6, -1), f.reshape(-1), w.reshape(-1)
-    H = ((J2 * w2[None]) @ J2.T) * scale
-    g = (J2 @ (w2 * f2)) * scale
-    energy = torch.sum(f2 * (w2 * f2)) * scale
+        level = photometric.Dense(cur_i, cur_d, cur_g)
+    H, g, energy, _ = photometric.photometric_hg(
+        prev_rows, level, krkinv, kt, fx, fy, cx, cy,
+        min_grad_scale=tcfg.min_grad_scale, max_depth_delta=tcfg.max_depth_delta,
+        stride=tcfg.rgb_stride, robust_kernel=tcfg.rgb_robust_kernel,
+        robust_k=tcfg.rgb_robust_k, rgb_weight=rgb_weight)
     return H, g, energy
 
 
@@ -182,13 +166,17 @@ def track_gauss_newton(map_state, map_cfg, decoder, tcfg: TrackerConfig,
                        init_dR, init_dt, fx, fy, cx, cy, rgb_weight):
     """The staged GN schedule; returns (dR, dt, iters_used [G] host ints)."""
 
-    # The packed previous frame, and for the sparse photometric term the
-    # pixel selection, once per frame for each pyramid level a group uses.
+    # The packed previous frame, the level's intrinsics (K, K^-1) and for
+    # the sparse photometric term the pixel selection, once per frame for
+    # each pyramid level a group uses.
     used = {int(t[1]) if len(t) > 1 else 0
             for _, terms in tcfg.iter_config for t in terms if t[0] == "rgb"}
     prev_rows = {lev: imgproc.intensity_depth_rows(prev_pyr.intensity[lev],
                                                    prev_pyr.depth[lev])
                  for lev in sorted(used)}
+    scales = {lev: 0.5 ** lev if tcfg.scale_level_intrinsics else 1.0 for lev in used}
+    intr = {lev: _intrinsics(fx * s, fy * s, cx * s, cy * s, init_dR.device)
+            for lev, s in sorted(scales.items())}
     sparse_levels = {}
     if tcfg.rgb_pixel_budget > 0:
         for lev in sorted(used):
@@ -208,12 +196,12 @@ def track_gauss_newton(map_state, map_cfg, decoder, tcfg: TrackerConfig,
                                      last_R, last_t, dR, dt, pts, mask)
             elif term[0] == "rgb":
                 lev = int(term[1]) if len(term) > 1 else 0
-                s = 0.5 ** lev if tcfg.scale_level_intrinsics else 1.0
+                s = scales[lev]
                 level_data = (prev_rows[lev], cur_pyr.intensity[lev],
                               cur_pyr.depth[lev], cur_pyr.gradient[lev])
                 Ht, gt, et = _rgb_Hg(tcfg, level_data, fx * s, fy * s,
                                      cx * s, cy * s, dR, dt, rgb_weight,
-                                     sparse=sparse_levels.get(lev))
+                                     sparse=sparse_levels.get(lev), K=intr[lev])
             elif term[0] == "motion":
                 Ht, gt, et = _motion_Hg(tcfg, dR, dt)
             else:

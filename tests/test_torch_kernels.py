@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from nerf_fusion_tpu_torch.models.io import load_model
-from nerf_fusion_tpu_torch.ops import cuda_build, gather, imgproc, mlp, stencil
+from nerf_fusion_tpu_torch.ops import cuda_build, gather, imgproc, mlp, photometric, stencil
+from nerf_fusion_tpu_torch.system.tracker import _intrinsics
+from nerf_fusion_tpu_torch.utils import se3_torch as st
 
 CKPT = Path(__file__).resolve().parent.parent / "ckpt/default/hyper.json"
 
@@ -42,10 +44,48 @@ def _points(device, h=61, w=83, seed=0):
     return pts.float().to(device), valid.to(device)
 
 
+def _photometric_case(device, h=61, w=83, stride=2, sparse=0, seed=0, nan_depth=0.1,
+                      robust="huber"):
+    """A previous and a current level of a smooth scene, NaN depths at a
+    ``nan_depth`` share of the current pixels, a pose that warps some pixels
+    out of the image; the dense term, or a ``sparse``-pixel selection."""
+    g = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                            torch.arange(w, dtype=torch.float32), indexing="ij")
+
+    def planes(shift):
+        inten = 0.5 + 0.4 * torch.sin((xx + shift) / 5.0) * torch.cos(yy / 7.0)
+        depth = 1.5 + 0.3 * torch.sin((xx + shift) / 9.0) + 0.005 * torch.rand(h, w, generator=g)
+        return inten, depth
+
+    i0, d0 = planes(0.0)
+    i1, d1 = planes(1.5)
+    d1[torch.rand(h, w, generator=g) < nan_depth] = float("nan")
+    grad = imgproc.gradient_xy(i1)
+    fx = fy = 0.8 * w
+    cx, cy = (w - 1) / 2.0, (h - 1) / 2.0
+    R, t = st.se3_exp(torch.tensor([0.03, -0.02, 0.02, 0.01, 0.04, -0.005]))
+    K, Kinv = _intrinsics(fx, fy, cx, cy, "cpu")
+    krkinv, kt = K @ R @ Kinv, K @ t
+    if sparse:
+        level = photometric.Sparse(w, h, imgproc.select_photometric_pixels(
+            i1, d1, grad, sparse, 1e-5, stride=stride))
+    else:
+        level = photometric.Dense(i1, d1, grad)
+    if device != "cpu":
+        level = level._replace(pix=tuple(p.to(device) for p in level.pix)) if sparse \
+            else photometric.Dense(*(p.to(device) for p in level))
+    args = (imgproc.intensity_depth_rows(i0, d0).to(device), level, krkinv.to(device),
+            kt.to(device), fx, fy, cx, cy)
+    kw = dict(min_grad_scale=1e-5, max_depth_delta=0.2, stride=stride, robust_kernel=robust,
+              robust_k=0.05, rgb_weight=500.0)
+    return args, kw
+
+
 def test_cpu_tensors_take_the_plain_path_and_count_nothing(model):
     before = (mlp.decoder_forward.launches, mlp.decoder_forward_grad.launches,
               mlp.encoder_forward.launches, stencil.normals_stencil.launches,
-              stencil.neighbor_count.launches)
+              stencil.neighbor_count.launches, photometric.photometric_hg.launches)
     x = torch.randn(40, 32)
     assert torch.equal(mlp.decoder_forward(x, model.decoder.packed, model.decoder.mats),
                        mlp.decoder_forward_plain(x, model.decoder.mats))
@@ -54,9 +94,14 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing(model):
     pts, valid = _points("cpu")
     stencil.normals_stencil(pts, valid, 0.1)
     stencil.neighbor_count(pts, valid, 0.05)
+    for sparse in (0, 500):
+        args, kw = _photometric_case("cpu", sparse=sparse)
+        for a, b in zip(photometric.photometric_hg(*args, **kw),
+                        photometric.photometric_hg_plain(*args, **kw)):
+            assert torch.equal(a, b)
     after = (mlp.decoder_forward.launches, mlp.decoder_forward_grad.launches,
              mlp.encoder_forward.launches, stencil.normals_stencil.launches,
-             stencil.neighbor_count.launches)
+             stencil.neighbor_count.launches, photometric.photometric_hg.launches)
     assert after == before
 
 
@@ -71,6 +116,19 @@ def test_wrappers_reject_bad_operands(model):
                             model.encoder.mats)
     with pytest.raises(ValueError):
         mlp.decoder_forward(torch.randn(8, 32, device="meta"), dec.packed, dec.mats)
+    (rows, level, krkinv, kt, *intr), kw = _photometric_case("cpu")
+    bad = [((rows, tuple(level), krkinv, kt, *intr), kw),           # not Dense / Sparse
+           ((rows[:-1], level, krkinv, kt, *intr), kw),             # source of another size
+           ((rows, level._replace(depth=level.depth.T), krkinv, kt, *intr), kw),
+           ((rows, level, krkinv.double(), kt, *intr), kw),
+           ((rows, level, krkinv.to("meta"), kt, *intr), kw),       # mixed devices
+           ((rows, level, krkinv, kt, *intr), {**kw, "stride": 0})]
+    for args, kwargs in bad:
+        with pytest.raises(ValueError):
+            photometric.photometric_hg(*args, **kwargs)
+    with pytest.raises(NotImplementedError):
+        photometric.photometric_hg(rows, level, krkinv, kt, *intr,
+                                   **{**kw, "robust_kernel": "cauchy"})
 
 
 def test_build_flags_target_hopper():
@@ -102,11 +160,48 @@ def test_decoder_kernels_match_plain(cuda_device, model, n):
 
 
 @pytest.mark.cuda
-def test_encoder_kernel_matches_plain(cuda_device, model):
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 5000, 327680])
+def test_encoder_kernel_matches_plain(cuda_device, model, n):
+    """Ragged sizes (a tile holds 16 rows) up to the integrate call's
+    8 x 40960 rows; one launch counted."""
     enc = model.encoder.to(cuda_device)
-    x = torch.randn(5000, 6).to(cuda_device)
-    torch.testing.assert_close(mlp.encoder_forward(x, enc.packed, enc.mats),
-                               mlp.encoder_forward_plain(x, enc.mats), atol=1e-4, rtol=0)
+    x = torch.randn(n, 6, generator=torch.Generator().manual_seed(n)).to(cuda_device)
+    n0 = mlp.encoder_forward.launches
+    out = mlp.encoder_forward(x, enc.packed, enc.mats)
+    assert mlp.encoder_forward.launches == n0 + 1
+    torch.testing.assert_close(out, mlp.encoder_forward_plain(x, enc.mats), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,stride,sparse,nan_depth,robust", [
+    (61, 83, 1, 0, 0.1, "huber"),        # dense, stride 1, ragged grid
+    (61, 83, 2, 0, 0.1, "tukey"),        # dense, stride 2 (31 x 42 pixels)
+    (240, 320, 2, 0, 0.02, None),
+    (480, 640, 2, 0, 0.02, "huber"),     # the loop's level 0
+    (61, 83, 2, 1001, 0.1, "huber"),     # sparse, ragged count
+    (480, 640, 2, 24576, 0.02, None),    # the fast path's level-0 budget
+    (61, 83, 2, 0, 1.0, "huber"),        # no valid pixel
+    (61, 83, 2, 700, 1.0, None),
+])
+def test_photometric_kernel_matches_plain(cuda_device, h, w, stride, sparse, nan_depth,
+                                          robust):
+    """The count exactly, H, g and the energy within 1e-4 of each output's
+    largest |entry| (f32 sums in another order), repeat calls bitwise equal,
+    one launch counted per call."""
+    args, kw = _photometric_case(cuda_device, h, w, stride, sparse, seed=h + sparse,
+                                 nan_depth=nan_depth, robust=robust)
+    n0 = photometric.photometric_hg.launches
+    out = photometric.photometric_hg(*args, **kw)
+    again = photometric.photometric_hg(*args, **kw)
+    assert photometric.photometric_hg.launches == n0 + 2
+    ref = photometric.photometric_hg_plain(*args, **kw)
+    assert float(out[3]) == float(ref[3])
+    if nan_depth == 1.0:
+        assert float(ref[3]) == 0.0
+    for a, b, c in zip(out, ref, again):
+        assert torch.equal(a, c)
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1e-12)
 
 
 @pytest.mark.cuda

@@ -1,8 +1,11 @@
-"""The decoder kernel's 3xTF32 arithmetic, emulated in plain PyTorch.
+"""The MLP kernels' 3xTF32 arithmetic, emulated in plain PyTorch.
 
 The CUDA decoder (``csrc/mlp.cu``) runs its hidden layers as TF32
 tensor-core products with the 3xTF32 split, reading the weights in the
-fragment order that ``ops.mlp.pack_decoder`` writes.  The emulation below
+fragment order that ``ops.mlp.pack_decoder`` writes; the encoder runs all
+four layers so, from ``ops.mlp.pack_encoder``'s buffer (the first layer
+padded to K = 8, the last to N = 32, the 256-wide layer streamed in four
+64-column chunks into the last layer's accumulator).  The emulation below
 repeats that arithmetic on the CPU: TF32 rounding as the kernel does it
 (round to nearest, ties away from zero: add 0x1000 to the bit pattern and
 clear the low 13 bits), the weights' staged split, the activations' split,
@@ -12,7 +15,8 @@ by the kernel's fragment indexing, and the gradient variant's four planes
 Seeded inputs shaped like the mesher's and the tracker's go through it,
 through the JAX package's ``apply_decoder`` and interpret-mode
 ``decoder_forward_pallas``, and through a float64 plain version, all on the
-``ckpt/default`` weights.
+``ckpt/default`` weights; the encoder's likewise through ``apply_encoder``,
+interpret-mode ``encoder_forward_pallas`` and ``encoder_forward_plain``.
 """
 
 from pathlib import Path
@@ -24,8 +28,9 @@ import pytest
 import torch
 
 from nerf_fusion_tpu.models.decoder import apply_decoder
+from nerf_fusion_tpu.models.encoder import apply_encoder
 from nerf_fusion_tpu.models.io import load_model as jax_load_model
-from nerf_fusion_tpu.ops.pallas_mlp import decoder_forward_pallas
+from nerf_fusion_tpu.ops.pallas_mlp import decoder_forward_pallas, encoder_forward_pallas
 from nerf_fusion_tpu_torch.models.io import load_model
 from nerf_fusion_tpu_torch.ops import mlp
 from nerf_fusion_tpu_torch.system.mesher import _sample_offsets
@@ -37,6 +42,9 @@ TOL_GRAD = 1e-3    # d sdf / d xyz
 PALLAS_MAX, PALLAS_MED = 4e-3, 1e-4
 MASK = -0x2000     # 0xffffe000: sign, exponent and 10 mantissa bits
 HIDDEN = [(32, 128), (128, 128), (128, 96), (128, 128)]
+# The encoder kernel's padded layers and its 256-wide layer's column chunk.
+ENCODER = [(8, 32), (32, 64), (64, 256), (256, 32)]
+CHUNK = mlp.ENCODER_CHUNK
 
 
 def rna(x: torch.Tensor) -> torch.Tensor:
@@ -73,11 +81,16 @@ def unpacked_fragments(packed):
 
 
 def layer(a, frag, bias, bias_rows, passes=3):
-    """acc = bias + a W as the kernel sums it: per K block, the three products
+    """acc = bias + a W as the kernel sums it (``accumulate``)."""
+    acc = torch.where(bias_rows[:, None], bias[None, :], torch.zeros(()))
+    return accumulate(acc, a, frag, passes)
+
+
+def accumulate(acc, a, frag, passes=3):
+    """acc += a W as the kernel sums it: per K block, the three products
     a_lo w_hi, a_hi w_lo, a_hi w_hi, with W read by fragment indexing
     (kb, nb, g, t, j) -> W[8kb + 2t + j, 8nb + g]."""
     n = frag.shape[1] * 8
-    acc = torch.where(bias_rows[:, None], bias[None, :], torch.zeros(()))
     for kb in range(frag.shape[0]):
         wk = frag[kb].permute(2, 3, 0, 1).reshape(8, n)
         ah, al = split_activation(a[:, 8 * kb:8 * kb + 8])
@@ -239,3 +252,111 @@ def test_one_tf32_pass_misses_the_tolerance(models):
     ref, _ = _float64(x, tm.decoder.mats)
     out = emulate(torch.as_tensor(x), tm.decoder.packed, grad=False, passes=1)
     assert (out.double() - ref).abs().max() > 10 * TOL_OUT
+
+
+# ---------------------------------------------------------------------------
+# The encoder kernel.
+# ---------------------------------------------------------------------------
+
+def encoder_fragments(packed):
+    """[(frag (K/8, N/8, 8, 4, 2), bias)] of the four padded layers; the
+    256-wide layer's frag is (4 chunks, 8, 8, 8, 4, 2)."""
+    layers, o = [], 0
+    for i, (k, n) in enumerate(ENCODER):
+        if i == 2:
+            frag = packed[o:o + k * n].reshape(n // CHUNK, k // 8, CHUNK // 8, 8, 4, 2)
+        else:
+            frag = packed[o:o + k * n].reshape(k // 8, n // 8, 8, 4, 2)
+        layers.append((frag, packed[o + k * n:o + k * n + n]))
+        o += k * n + n
+    assert o == packed.numel() == mlp.ENCODER_PACKED
+    return layers
+
+
+def _unfragment(frag):
+    kbs, nbs = frag.shape[:2]
+    return frag.permute(0, 3, 4, 1, 2).reshape(8 * kbs, 8 * nbs)
+
+
+def emulate_encoder(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """The encoder kernel's arithmetic: (N, 6) -> (N, 29)."""
+    (f0, b0), (f1, b1), (f2, b2), (f3, b3) = encoder_fragments(packed)
+    n = x.shape[0]
+    rows = torch.ones(n, dtype=torch.bool)
+    xp = torch.cat([x, torch.zeros(n, 2)], 1)           # K = 6 padded to 8
+    h = torch.relu(layer(xp, f0, b0, rows))
+    h = torch.relu(layer(h, f1, b1, rows))
+    acc = b3[None, :].expand(n, 32).clone()
+    for c in range(f2.shape[0]):                          # 64-column chunks
+        a = torch.relu(layer(h, f2[c], b2[CHUNK * c:CHUNK * (c + 1)], rows))
+        kb = slice(c * CHUNK // 8, (c + 1) * CHUNK // 8)
+        acc = accumulate(acc, a, f3[kb])                  # the last layer's K chunk
+    return acc[:, :mlp.ENCODER_OUT]
+
+
+def _encoder_inputs(kind: str, n: int = 2100) -> np.ndarray:
+    rng = np.random.default_rng(11)
+    if kind == "gaussian":
+        return rng.standard_normal((n, 6)).astype(np.float32)
+    # integrate_keyframe's features: corner offsets in [-1.5, 0.5], unit normals
+    rel = rng.uniform(-1.5, 0.5, (n, 3))
+    nrm = rng.standard_normal((n, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    return np.concatenate([rel, nrm], 1).astype(np.float32)
+
+
+def test_encoder_unpacking_gives_the_folded_matrices(models):
+    """``pack_encoder``'s buffer unpacks exactly to ``fold_encoder_weights``
+    (and the module's matrices), with zeros in the padding: rows 6-7 of the
+    first matrix, columns 29-31 and bias 29-31 of the last."""
+    jm, tm = models
+    np_ = jax.tree_util.tree_map(np.asarray, (jm.encoder_params, jm.encoder_bn))
+    folded = mlp.fold_encoder_weights(np_[0], np_[1], 4, lambda i: f"layer{i}" in np_[1])
+    layers = encoder_fragments(tm.encoder.packed)
+    (f0, b0), (f1, b1), (f2, b2), (f3, b3) = layers
+    w2 = torch.cat([_unfragment(f2[c]) for c in range(f2.shape[0])], 1)
+    unpacked = [(_unfragment(f0), b0), (_unfragment(f1), b1), (w2, b2),
+                (_unfragment(f3), b3)]
+    for (w, b), (fw, fb), (mw, mb) in zip(unpacked, folded, tm.encoder.mats, strict=True):
+        k, n = fw.shape
+        assert torch.equal(w[:k, :n], fw) and torch.equal(b[:n], fb)
+        assert torch.equal(w[:k, :n], mw) and torch.equal(b[:n], mb)
+        assert not w[k:].any() and not w[:, n:].any() and not b[n:].any()
+    # element (kb, nb, lane = 4g + t, j) of the first chunk is W2[8kb + 2t + j, 8nb + g]
+    flat = f2[1].reshape(8, CHUNK // 8, 32, 2)
+    for kb, nb, lane, j in [(0, 0, 0, 0), (3, 5, 13, 1), (7, 7, 31, 1)]:
+        g, t = lane // 4, lane % 4
+        assert flat[kb, nb, lane, j] == folded[2][0][8 * kb + 2 * t + j,
+                                                     CHUNK + 8 * nb + g]
+
+
+@pytest.mark.parametrize("kind", ["features", "gaussian"])
+def test_emulated_encoder_matches_float64_and_plain(models, kind):
+    """Within 1e-4 of float64 and of the f32 plain version (the card's
+    tolerance); a ragged row count (2100 = 131 tiles of 16 + 4)."""
+    _, tm = models
+    x = torch.as_tensor(_encoder_inputs(kind))
+    out = emulate_encoder(x, tm.encoder.packed)
+    m64 = [(w.double(), b.double()) for w, b in tm.encoder.mats]
+    ref64 = mlp.encoder_forward_plain(x.double(), m64)
+    assert out.shape == (2100, 29)
+    assert (out.double() - ref64).abs().max() <= TOL_OUT
+    assert (out - mlp.encoder_forward_plain(x, tm.encoder.mats)).abs().max() <= TOL_OUT
+
+
+@pytest.mark.parametrize("kind", ["features", "gaussian"])
+def test_emulated_encoder_matches_jax(models, kind):
+    """Against ``apply_encoder`` (f32, relative to the latents' magnitude as
+    in test_torch_models.py) and interpret-mode ``encoder_forward_pallas``
+    (bf16x3: the Pallas tolerances)."""
+    jm, tm = models
+    x = _encoder_inputs(kind)
+    out = emulate_encoder(torch.as_tensor(x), tm.encoder.packed).numpy()
+    lat_j, _ = apply_encoder(jm.encoder_params, jm.encoder_bn, jm.encoder_config,
+                             jnp.asarray(x), train=False)
+    lat_j = np.asarray(lat_j)
+    assert np.abs(out - lat_j).max() <= TOL_OUT * max(1.0, float(np.abs(lat_j).max()))
+    lat_p = encoder_forward_pallas(jm.encoder_params, jm.encoder_bn, jm.encoder_config,
+                                   jnp.asarray(x), interpret=True)
+    err = np.abs(out - np.asarray(lat_p))
+    assert err.max() < PALLAS_MAX and np.median(err) < PALLAS_MED
