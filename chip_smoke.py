@@ -20,19 +20,27 @@
    selection.  A bound is taken at the peak of the unit the kernel
    computes on (``bound_peak``): the decoders' and the encoder's at three
    TF32 tensor-core passes, with the f32 CUDA-core bound beside it
-   (``bound_f32_ms``).
-3. Runs three paths, each with the launch counters zeroed just before:
+   (``bound_f32_ms``).  The fused frontend stencil is held to the plain
+   composition: points bitwise, the final mask pixel for pixel, normals
+   by direction on the mask and zero off it, two calls bitwise.  The three
+   stencil rows are timed a second time after the photometric phase, with
+   the kernel names, grids and the number of device events of each trace
+   (``utils.timing.device_trace``): a trace can lose events, and
+   ``utils.timing.per_call`` reads such a trace by its mean event.
+3. Runs four paths, each with the launch counters zeroed just before:
    (a) the dense fusion loop through its entry point
        (``nerf_fusion_tpu_torch.main configs/fusion-synth.yaml``, 640x480,
        all 100 frames);
    (b) the fast tracking path: the same with the two deltas of
        ``configs/fusion-lr-kt-fast.yaml`` (``rgb.pixel_budget`` 24576,
        ``mesh_reuse_latent_eps`` 0.003) given by ``--exec``;
-   (c) the gather probe (``nerf_fusion_tpu_torch.tools.gather_probe``).
+   (c) the gather probe (``nerf_fusion_tpu_torch.tools.gather_probe``);
+   (d) the frontend probe (``nerf_fusion_tpu_torch.tools.preprocess_probe``).
    Fails unless every kernel launched on some path, the photometric
-   kernel on both fusion paths, the row gather at 4 columns (the
-   selection) on (b) and at 1, 2 and 4 on (c), and on (a) and (b) the
-   box filter dropped nothing and ATE and mesh |SDF| are below 20 mm.
+   kernel and the fused frontend stencil on both fusion paths, the row
+   gather at 4 columns (the selection) on (b) and at 1, 2 and 4 on (c),
+   the two standalone stencils on (d), and on (a) and (b) the box filter
+   dropped nothing and ATE and mesh |SDF| are below 20 mm.
 4. Prints the ``{"kernels": [...]}`` line, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -340,7 +348,9 @@ def kernel_phase(dev):
     from nerf_fusion_tpu_torch.models.io import load_model
     from nerf_fusion_tpu_torch.ops import imgproc, mlp, stencil
     from nerf_fusion_tpu_torch.system.mesher import _sample_offsets
-    from nerf_fusion_tpu_torch.utils.timing import call_ms, device_ms
+    from nerf_fusion_tpu_torch.tools.preprocess_probe import frontend_mismatch, frontend_ok
+    from nerf_fusion_tpu_torch.utils.timing import (call_ms, device_ms, device_trace,
+                                                    per_call)
 
     model, _ = load_model(REPO / "ckpt/default/hyper.json", 300)
     model.to(dev)
@@ -467,11 +477,53 @@ def kernel_phase(dev):
         plain_ms=device_ms(lambda: stencil.normals_stencil_plain(pts0, gated, 0.1)),
         bound=bound_ms(n_valid * (49 * 8 + 100) + n_acc * 16, px * (13 + 16))))
 
+    # the fused frontend stencil on the same depth plane with the frontend's
+    # gates: both windows' operations as the two rows above count them plus
+    # the unprojection (6 a pixel); one depth plane in, seven planes out
+    k1 = (c.fx * 0.5, c.fy * 0.5, c.cx * 0.5, c.cy * 0.5)
+    fused = stencil.frontend_points(d1, *k1)
+    again = stencil.frontend_points(d1, *k1)
+    plain = stencil.frontend_points_plain(d1, *k1)
+    torch.cuda.synchronize()
+    mism = frontend_mismatch(fused, plain)
+    m = fused[2] & plain[2]
+    rows.append(dict(
+        name="stencil_frontend",
+        err=float((fused[1] - plain[1])[:, m].abs().max()), tol=None,
+        normal_agree_frac=mism["agree_frac"], **mism,
+        repeat_equal=all(torch.equal(a, b) for a, b in zip(fused, again)),
+        source="nerf_fusion_tpu_torch/csrc/stencil.cu",
+        replaces="nerf_fusion_tpu/ops/pallas_stencil.py:202 (_padded_call via "
+                 "neighbor_count_pallas :238 and normals_stencil_pallas :218, composed as "
+                 "nerf_fusion_tpu/system/frontend.py:96-110)",
+        shape=f"({H}, {W}) -> (3, {H}, {W}) + (3, {H}, {W}) + ({H}, {W})",
+        ms=device_ms(lambda: stencil.frontend_points(d1, *k1), 100),
+        call_ms=call_ms(lambda: stencil.frontend_points(d1, *k1), 100),
+        plain_ms=device_ms(lambda: stencil.frontend_points_plain(d1, *k1)),
+        bound=bound_ms(px * 6 + int(valid.sum()) * 49 * 8 + float(cref.sum())
+                       + n_valid * (49 * 8 + 100) + n_acc * 16, px * (4 + 25))))
+    retime = {"stencil_count": lambda: stencil.neighbor_count(pts0, valid, 0.05),
+              "stencil_normals": lambda: stencil.normals_stencil(pts0, gated, 0.1),
+              "stencil_frontend": lambda: stencil.frontend_points(d1, *k1)}
+
     rows += gather_phase(dev, seq.render_frame(1))
     rows += photometric_phase(dev, seq)
+    # the stencil rows once more, after the photometric phase, event by event
+    for r in rows:
+        if r["name"] in retime:
+            events = device_trace(retime[r["name"]], 100)
+            us = sorted(e["us"] for e in events)
+            r["ms_again"] = per_call(us, 100)[0]
+            print(f"kernel {r['name']}: {r['ms']:.4f} ms where it stands, "
+                  f"{r['ms_again']:.4f} ms after the photometric phase: {len(events)} "
+                  f"device events in 100 calls, min / median / max "
+                  f"{us[0]:.3f} / {us[len(us) // 2]:.3f} / {us[-1]:.3f} us, kernels "
+                  f"{sorted({(e['name'][-40:], str(e['grid']), str(e['block'])) for e in events})}",
+                  flush=True)
     for r in rows:
         extra = {k: r[k] for k in ("grad_err", "grad_within_tol", "normal_agree_frac",
-                                   "count_err", "library_ms", "selection_matches_cpu")
+                                   "count_err", "mask_diff", "pts_equal", "off_mask_zero",
+                                   "repeat_equal", "library_ms", "selection_matches_cpu")
                  if k in r}
         if "bound_f32" in r:
             extra["bound_f32_ms"] = r["bound_f32"][0]
@@ -491,6 +543,13 @@ def kernel_phase(dev):
     if rows[4]["normal_agree_frac"] < 0.99:
         fail(f"stencil_normals: only {rows[4]['normal_agree_frac']:.4f} of the "
              f"pixels with |n.n_plain| > {TOL_NORMAL_DOT}")
+    f = rows[5]
+    print(f"stencil_frontend: final mask differs from the plain version's on "
+          f"{f['mask_diff']} pixels", flush=True)
+    if not (frontend_ok(f) and f["repeat_equal"]):
+        held = {k: f[k] for k in ("pts_equal", "mask_diff", "agree_frac", "off_mask_zero",
+                                  "repeat_equal")}
+        fail(f"stencil_frontend differs from the plain composition: {held}")
     g = rows[1]
     if g["grad_within_tol"] < 0.999:
         fail(f"decoder_forward_grad: gradient within {TOL_GRAD} on only "
@@ -499,8 +558,8 @@ def kernel_phase(dev):
 
 
 KERNEL_ROWS = ("decoder_forward", "decoder_forward_grad", "encoder_forward",
-               "stencil_count", "stencil_normals", "row_gather", "row_gather_c1",
-               "lane_gather", "photometric_hg")
+               "stencil_count", "stencil_normals", "stencil_frontend", "row_gather",
+               "row_gather_c1", "lane_gather", "photometric_hg")
 
 
 def ptxas_report(report: dict):
@@ -553,7 +612,8 @@ def zero_launches():
     from nerf_fusion_tpu_torch.ops import gather, mlp, photometric, stencil
 
     for w in (mlp.decoder_forward, mlp.decoder_forward_grad, mlp.encoder_forward,
-              stencil.neighbor_count, stencil.normals_stencil, photometric.photometric_hg):
+              stencil.neighbor_count, stencil.normals_stencil, stencil.frontend_points,
+              photometric.photometric_hg):
         w.launches = 0
     gather.reset_launches()
 
@@ -569,6 +629,7 @@ def read_launches() -> dict:
             "encoder_forward": mlp.encoder_forward.launches,
             "stencil_count": stencil.neighbor_count.launches,
             "stencil_normals": stencil.normals_stencil.launches,
+            "stencil_frontend": stencil.frontend_points.launches,
             "row_gather": by_c[2] + by_c[4], "row_gather_c1": by_c[1],
             "lane_gather": gather.lane_gather.launches,
             "photometric_hg": photometric.photometric_hg.launches,
@@ -614,28 +675,28 @@ def fusion_path(dev, label: str, exec_: str = None):
     return launches, res
 
 
-def probe_path():
-    """The gather probe through its entry point, launch counters zeroed."""
+def probe_path(label: str, probe):
+    """A probe module (the gather or the frontend probe) through its entry
+    point, launch counters zeroed."""
     import torch
-
-    from nerf_fusion_tpu_torch.tools import gather_probe
 
     torch.cuda.synchronize()
     zero_launches()
-    res = gather_probe.main()
+    res = probe.main()
     torch.cuda.synchronize()
     launches = read_launches()
-    print(f"probe path: launches {launches}", flush=True)
+    print(f"{label} probe path: launches {launches}", flush=True)
     return launches, res
 
 
 def check_launches(paths: dict):
     required = {
         "dense": ("decoder_forward", "decoder_forward_grad", "encoder_forward",
-                  "stencil_count", "stencil_normals", "photometric_hg"),
+                  "stencil_frontend", "photometric_hg"),
         "fast": ("decoder_forward", "decoder_forward_grad", "encoder_forward",
-                 "stencil_count", "stencil_normals", "photometric_hg", "row_gather"),
+                 "stencil_frontend", "photometric_hg", "row_gather"),
         "probe": ("row_gather", "row_gather_c1", "lane_gather"),
+        "frontend_probe": ("stencil_count", "stencil_normals", "stencil_frontend"),
     }
     for label, names in required.items():
         for name in names:
@@ -661,6 +722,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO))
     from nerf_fusion_tpu_torch.ops import cuda_build
+    from nerf_fusion_tpu_torch.tools import gather_probe, preprocess_probe
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -676,7 +738,8 @@ def main() -> int:
     paths = {}
     paths["dense"], _ = fusion_path(dev, "dense")
     paths["fast"], _ = fusion_path(dev, "fast", FAST_EXEC)
-    paths["probe"], _ = probe_path()
+    paths["probe"], _ = probe_path("gather", gather_probe)
+    paths["frontend_probe"], _ = probe_path("frontend", preprocess_probe)
     check_launches(paths)
     kernels = []
     for r in rows:
@@ -695,7 +758,9 @@ def main() -> int:
                if r["name"] in tensor_cores else {}),
             "library_ms": r.get("library_ms"), "shape": r["shape"],
             **{k: r[k] for k in ("grad_err", "grad_tol", "grad_within_tol", "count_err",
-                                 "normal_agree_frac", "selection_matches_cpu", "cases")
+                                 "normal_agree_frac", "mask_diff", "pts_equal",
+                                 "off_mask_zero", "repeat_equal", "ms_again",
+                                 "selection_matches_cpu", "cases")
                if k in r}})
     if sorted(k["name"] for k in kernels) != sorted(KERNEL_ROWS):
         fail(f"kernel rows {[k['name'] for k in kernels]} are not {KERNEL_ROWS}")

@@ -39,6 +39,7 @@ SIGNATURES = {
     "stencil": {
         "stencil_normals": (_P, _P, _I, _I, _F, _P, _P, _P),
         "stencil_count": (_P, _P, _I, _I, _F, _P, _P),
+        "stencil_frontend": (_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P),
     },
     "gather": {
         "row_gather": (_P, _I, _I, _P, _I, _P, _P),

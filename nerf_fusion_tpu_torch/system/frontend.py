@@ -1,11 +1,12 @@
 """Per-frame RGB-D preprocessing: images -> oriented, outlier-filtered,
 voxel-downsampled points + image pyramids.
 
-Counterpart of the JAX package's ``system/frontend.py``.  The two windowed
-passes run the stencil kernels (``ops.stencil``): the radius-outlier count
-at ``outlier_radius`` and, on the gated mask, the PCA normals at
-``normal_radius``.  The kernels count the centre pixel; the gates subtract
-it where the reference's neighbour count excludes it.
+Counterpart of the JAX package's ``system/frontend.py``.  The point-cloud
+stage is one stencil kernel (``ops.stencil.frontend_points``): unproject,
+the radius-outlier count at ``outlier_radius`` and its gate, the PCA
+normals at ``normal_radius`` on the gated mask and the normal gate.  The
+kernel counts the centre pixel; the gates subtract it where the
+reference's neighbour count excludes it.
 """
 
 from __future__ import annotations
@@ -64,19 +65,9 @@ def preprocess_frame(rgb, depth, fx, fy, cx, cy,
         raise ValueError("supported depth subsample scales: 1, 0.5, 0.25")
     pc_depth = {1.0: d0, 0.5: d1, 0.25: d2}[subsample]
     s = subsample
-    pts = imgproc.unproject_depth(pc_depth, fx * s, fy * s, cx * s, cy * s)
-    valid = torch.isfinite(pc_depth)
-    pts0 = torch.where(valid[None], pts, torch.zeros_like(pts))
-
-    # Radius outlier removal: >= outlier_min_nb neighbours (centre excluded).
-    ncount = stencil.neighbor_count(pts0, valid, outlier_radius) - valid.to(torch.float32)
-    valid = valid & (ncount >= outlier_min_nb)
-
-    # Windowed-PCA normals on the gated mask, camera-facing.
-    normals, cnt = stencil.normals_stencil(pts0, valid, normal_radius)
-    nvalid = valid & (cnt >= normal_min_nb + 1) & torch.isfinite(torch.sum(normals, dim=0))
-    normals = torch.where(nvalid[None], normals, torch.zeros_like(normals))
-    valid = valid & nvalid
+    pts0, normals, valid = stencil.frontend_points(
+        pc_depth, fx * s, fy * s, cx * s, cy * s, outlier_radius, outlier_min_nb,
+        normal_radius, normal_min_nb)
 
     # Box-filter downsample into the fixed budget.
     step = {1.0: 1, 0.5: 2, 0.25: 4}[subsample]

@@ -6,10 +6,17 @@ calls run on the card, from a ``torch.profiler`` trace, and divides by
 time of ``reps`` back-to-back calls between two CUDA events, per call: it
 also holds the host's cost of issuing the call, and for a call whose
 kernels are shorter than that cost it measures the host, not the card.
-Both run the call 3 times first.
+Both run the call 3 times first.  ``device_trace`` lists the device events
+of such a trace one by one, with each kernel's grid and block, and
+``per_call`` turns event durations into time and events per call, also for
+a trace that lost events.
 """
 
 from __future__ import annotations
+
+import json
+import tempfile
+from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
@@ -22,6 +29,20 @@ def _warm(fn):
     torch.cuda.synchronize()
 
 
+def per_call(durations_us, reps: int):
+    """(device ms, device events) per call from the durations of the device
+    events that a trace of ``reps`` calls holds.  A trace can lose device
+    events, in the runs seen its first ones (87 and 97 events for 100
+    launches of one kernel): a count that is no multiple of ``reps`` is
+    read as such a trace, and the time is then the mean event's times the
+    next whole number of events a call (exact while fewer than ``reps``
+    events are lost), not the sum over ``reps``."""
+    n = len(durations_us)
+    k = -(-n // reps)
+    total = float(sum(durations_us))
+    return (total / reps if n % reps == 0 else total / n * k) * 1e-3, k
+
+
 def device_ms(fn, reps: int = 20) -> float:
     """The profiler now and then returns a trace without the device's events
     (once in a ``chip_smoke.py`` run on the H100, for ``torch.gather``); such
@@ -32,11 +53,28 @@ def device_ms(fn, reps: int = 20) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                      if e.device_type == DeviceType.CUDA)
-        if busy_us > 0:
-            return busy_us * 1e-3 / reps
+        durations = [e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+        if sum(durations) > 0:
+            return per_call(durations, reps)[0]
     raise RuntimeError("device_ms: three traces held no device time")
+
+
+def device_trace(fn, reps: int = 20) -> list:
+    """One dict per device event of ``reps`` calls, from the chrome trace:
+    name, duration in us, grid and block (None for a copy)."""
+    _warm(fn)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    return [{"name": e["name"], "us": float(e["dur"]), "grid": e["args"].get("grid"),
+             "block": e["args"].get("block")}
+            for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
 
 
 def call_ms(fn, reps: int = 20) -> float:

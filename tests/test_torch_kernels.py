@@ -15,7 +15,10 @@ import torch
 from nerf_fusion_tpu_torch.models.io import load_model
 from nerf_fusion_tpu_torch.ops import cuda_build, gather, imgproc, mlp, photometric, stencil
 from nerf_fusion_tpu_torch.system.tracker import _intrinsics
+from nerf_fusion_tpu_torch.tools.preprocess_probe import (frontend_mismatch, frontend_ok,
+                                                          normal_agreement)
 from nerf_fusion_tpu_torch.utils import se3_torch as st
+from nerf_fusion_tpu_torch.utils.timing import per_call
 
 CKPT = Path(__file__).resolve().parent.parent / "ckpt/default/hyper.json"
 
@@ -42,6 +45,17 @@ def _points(device, h=61, w=83, seed=0):
     valid = torch.rand(h, w, generator=g) > 0.1
     pts = torch.where(valid[None], pts, torch.zeros_like(pts))
     return pts.float().to(device), valid.to(device)
+
+
+def _depth(device, h, w, seed=0, nan=0.1):
+    """A smooth depth with a step edge, sensor-like noise and a ``nan`` share
+    of invalid pixels, and intrinsics at the main path's pixel pitch."""
+    g = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    z = 1.5 + 0.3 * torch.sin(xx / 40.0) + 0.4 * ((xx > w // 2) & (yy > h // 3)) \
+        + 0.004 * torch.rand(h, w, generator=g)
+    z[torch.rand(h, w, generator=g) < nan] = float("nan")
+    return z.float().to(device), (240.0, 241.5, (w - 1) / 2.0, (h - 1) / 2.0)
 
 
 def _photometric_case(device, h=61, w=83, stride=2, sparse=0, seed=0, nan_depth=0.1,
@@ -83,9 +97,13 @@ def _photometric_case(device, h=61, w=83, stride=2, sparse=0, seed=0, nan_depth=
 
 
 def test_cpu_tensors_take_the_plain_path_and_count_nothing(model):
-    before = (mlp.decoder_forward.launches, mlp.decoder_forward_grad.launches,
-              mlp.encoder_forward.launches, stencil.normals_stencil.launches,
-              stencil.neighbor_count.launches, photometric.photometric_hg.launches)
+    def counts():
+        return (mlp.decoder_forward.launches, mlp.decoder_forward_grad.launches,
+                mlp.encoder_forward.launches, stencil.normals_stencil.launches,
+                stencil.neighbor_count.launches, stencil.frontend_points.launches,
+                photometric.photometric_hg.launches)
+
+    before = counts()
     x = torch.randn(40, 32)
     assert torch.equal(mlp.decoder_forward(x, model.decoder.packed, model.decoder.mats),
                        mlp.decoder_forward_plain(x, model.decoder.mats))
@@ -94,15 +112,16 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing(model):
     pts, valid = _points("cpu")
     stencil.normals_stencil(pts, valid, 0.1)
     stencil.neighbor_count(pts, valid, 0.05)
+    depth, k = _depth("cpu", 61, 47)
+    for a, b in zip(stencil.frontend_points(depth, *k),
+                    stencil.frontend_points_plain(depth, *k)):
+        assert torch.equal(a, b)
     for sparse in (0, 500):
         args, kw = _photometric_case("cpu", sparse=sparse)
         for a, b in zip(photometric.photometric_hg(*args, **kw),
                         photometric.photometric_hg_plain(*args, **kw)):
             assert torch.equal(a, b)
-    after = (mlp.decoder_forward.launches, mlp.decoder_forward_grad.launches,
-             mlp.encoder_forward.launches, stencil.normals_stencil.launches,
-             stencil.neighbor_count.launches, photometric.photometric_hg.launches)
-    assert after == before
+    assert counts() == before
 
 
 def test_wrappers_reject_bad_operands(model):
@@ -129,6 +148,18 @@ def test_wrappers_reject_bad_operands(model):
     with pytest.raises(NotImplementedError):
         photometric.photometric_hg(rows, level, krkinv, kt, *intr,
                                    **{**kw, "robust_kernel": "cauchy"})
+
+
+def test_per_call_reads_a_trace_that_lost_events():
+    """100 launches of one 4.1 us kernel, all events or only 87 of them: the
+    same time per call; whole multiples of the calls are summed as before."""
+    full, k = per_call([4.1] * 100, 100)
+    lost, k_lost = per_call([4.1] * 87, 100)
+    assert (k, k_lost) == (1, 1) and abs(full - 4.1e-3) < 1e-9 and abs(lost - full) < 1e-9
+    ms, k = per_call([1.0, 3.0] * 20, 20)
+    assert k == 2 and abs(ms - 4.0e-3) < 1e-12
+    ms, k = per_call([2.0] * 2987, 20)          # 13 of 3000 events lost
+    assert k == 150 and abs(ms - 0.3) < 1e-9
 
 
 def test_build_flags_target_hopper():
@@ -216,6 +247,65 @@ def test_stencil_kernels_match_plain(cuda_device, h):
     m = valid & (cr >= 6)
     if m.any():
         assert ((n * nr).sum(0)[m].abs() > 0.999).float().mean() >= 0.99
+
+
+SIZES = [(240, 320), (480, 640), (120, 160), (61, 47), (7, 9)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", SIZES)
+def test_stencil_kernels_match_plain_at_frontend_sizes(cuda_device, h, w):
+    """Counts exactly and normals by direction, on an ungated and a gated
+    mask, at sizes that are and are not multiples of the tile."""
+    depth, k = _depth(cuda_device, h, w, seed=h)
+    pts0, _, gated = stencil.frontend_points_plain(depth, *k, 0.05, 16, 0.1, 0)
+    for valid, radius in ((torch.isfinite(depth), 0.05), (gated, 0.1)):
+        n0 = (stencil.neighbor_count.launches, stencil.normals_stencil.launches)
+        cnt = stencil.neighbor_count(pts0, valid, radius)
+        nrm, c = stencil.normals_stencil(pts0, valid, radius)
+        assert (stencil.neighbor_count.launches, stencil.normals_stencil.launches) == \
+            (n0[0] + 1, n0[1] + 1)
+        nrm_p, c_p = stencil.normals_stencil_plain(pts0, valid, radius)
+        assert torch.equal(cnt, c_p) and torch.equal(c, c_p)
+        assert torch.isfinite(nrm).all()
+        assert normal_agreement(nrm, nrm_p, valid & (c_p >= 6)) >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", SIZES)
+@pytest.mark.parametrize("outlier_min_nb,normal_min_nb", [(16, 5), (0, 5), (16, 0), (0, 0)])
+def test_frontend_kernel_matches_plain(cuda_device, h, w, outlier_min_nb, normal_min_nb):
+    """Points bitwise, the final mask pixel for pixel, normals by direction
+    on the mask and zero off it, repeat calls bitwise equal, one launch a
+    call and none of the standalone kernels."""
+    depth, k = _depth(cuda_device, h, w, seed=h + outlier_min_nb)
+    gates = (0.05, outlier_min_nb, 0.1, normal_min_nb)
+    n0 = (stencil.frontend_points.launches, stencil.neighbor_count.launches,
+          stencil.normals_stencil.launches)
+    out = stencil.frontend_points(depth, *k, *gates)
+    again = stencil.frontend_points(depth, *k, *gates)
+    assert (stencil.frontend_points.launches, stencil.neighbor_count.launches,
+            stencil.normals_stencil.launches) == (n0[0] + 2, n0[1], n0[2])
+    mism = frontend_mismatch(out, stencil.frontend_points_plain(depth, *k, *gates))
+    assert frontend_ok(mism), mism
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    if (h, w) == (240, 320):
+        assert int(out[2].sum()) > 0.3 * h * w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all_nan", "flat_wall"])
+def test_frontend_kernel_degenerate_depths(cuda_device, case):
+    depth = torch.full((48, 64), float("nan") if case == "all_nan" else 2.0,
+                       device=cuda_device)
+    k = (300.0, 300.0, 31.5, 23.5)
+    out = stencil.frontend_points(depth, *k)
+    mism = frontend_mismatch(out, stencil.frontend_points_plain(depth, *k))
+    assert frontend_ok(mism), mism
+    if case == "all_nan":
+        assert not out[2].any() and torch.all(out[0] == 0) and torch.all(out[1] == 0)
+    else:
+        assert out[2][3:-3, 3:-3].all() and torch.all(out[1][2, 3:-3, 3:-3] < -0.999)
 
 
 def _nan_equal(a, b):
