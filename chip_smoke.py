@@ -14,12 +14,18 @@
    a profiler trace (``ms``, ``plain_ms``, ``library_ms``), and the
    kernel's call time between CUDA events (``call_ms``), which includes
    the host's cost of issuing it.  The gathers are held bit-exact, NaN
-   positions included; the photometric kernel's valid count exactly, its
-   H, g and energy to 1e-4 of each output's largest entry, and two calls
-   bitwise, at the dense level-0 shape and at the fast path's 24576-pixel
-   selection.  A bound is taken at the peak of the unit the kernel
-   computes on (``bound_peak``): the decoders' and the encoder's at three
-   TF32 tensor-core passes, with the f32 CUDA-core bound beside it
+   positions included, and timed with the L2 flushed before each call (a
+   128 MB copy, its own events not counted), so that no row reads faster
+   than its bound from device memory; ``select_gather`` is held bitwise at
+   the fast path's level-0 selection.  The photometric kernel's valid count
+   exactly, its H, g and energy to 1e-4 of each output's largest entry, and
+   two calls bitwise, at the dense level-0 shape and at the fast path's
+   24576-pixel selection.  ``gn_step`` on every step of a real frame's GN
+   loops (dense and sparse), replayed on copies of the recorded state: the
+   new pose within 1e-5 of its largest entry, the decisions equal.  A bound
+   is taken at the peak of the unit the kernel computes on
+   (``bound_peak``): the decoders' and the encoder's at three TF32
+   tensor-core passes, with the f32 CUDA-core bound beside it
    (``bound_f32_ms``).  The fused frontend stencil is held to the plain
    composition: points bitwise, the final mask pixel for pixel, normals
    by direction on the mask and zero off it, two calls bitwise.  The three
@@ -27,20 +33,29 @@
    the kernel names, grids and the number of device events of each trace
    (``utils.timing.device_trace``): a trace can lose events, and
    ``utils.timing.per_call`` reads such a trace by its mean event.
-3. Runs four paths, each with the launch counters zeroed just before:
+3. Runs five paths, each with the launch counters zeroed just before:
    (a) the dense fusion loop through its entry point
        (``nerf_fusion_tpu_torch.main configs/fusion-synth.yaml``, 640x480,
-       all 100 frames);
+       all 100 frames), each tracked frame after the first as CUDA graph
+       replays;
    (b) the fast tracking path: the same with the two deltas of
        ``configs/fusion-lr-kt-fast.yaml`` (``rgb.pixel_budget`` 24576,
        ``mesh_reuse_latent_eps`` 0.003) given by ``--exec``;
-   (c) the gather probe (``nerf_fusion_tpu_torch.tools.gather_probe``);
-   (d) the frontend probe (``nerf_fusion_tpu_torch.tools.preprocess_probe``).
-   Fails unless every kernel launched on some path, the photometric
-   kernel and the fused frontend stencil on both fusion paths, the row
-   gather at 4 columns (the selection) on (b) and at 1, 2 and 4 on (c),
-   the two standalone stencils on (d), and on (a) and (b) the box filter
-   dropped nothing and ATE and mesh |SDF| are below 20 mm.
+   (c) the dense path with ``frames_per_call = 19`` (blocks of 19 frames
+       between the 20-frame cadences), held within 0.3 mm of (a)'s ATE and
+       mesh |SDF|;
+   (d) the gather probe (``nerf_fusion_tpu_torch.tools.gather_probe``);
+   (e) the frontend probe (``nerf_fusion_tpu_torch.tools.preprocess_probe``).
+   Each fusion path runs in a profiler trace and prints its graph replays,
+   host reads and kernels (from the trace) per frame; its launch counters
+   must equal this repo's kernels in the trace, and each GN group's
+   evaluation through its captured graph must give H, g and energy bitwise
+   equal to the same functions run eagerly.  Fails unless every kernel
+   launched on some path, the photometric kernel, the fused frontend
+   stencil and ``gn_step`` on the fusion paths, ``select_gather`` on (b),
+   the row gather on no fusion path and at 1, 2 and 4 on (d), the two
+   standalone stencils on (e), and on (a)-(c) the box filter dropped
+   nothing and ATE and mesh |SDF| are below 20 mm.
 4. Prints the ``{"kernels": [...]}`` line, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -83,6 +98,7 @@ TOL_MLP = 1e-4          # decoder / encoder outputs: f32, summation order only
 TOL_HG = 1e-4           # photometric H, g, energy: of each output's largest |entry|
 TOL_GRAD = 1e-3         # decoder input gradient
 TOL_NORMAL_DOT = 0.999  # |n . n_plain| on 99 % of the valid pixels
+TOL_GN = 1e-5           # gn_step's new pose: of its largest |entry| (f32 LU, another library)
 
 
 def fail(msg: str):
@@ -108,20 +124,26 @@ def nan_err(out, ref) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
-def gather_case(fn, plain, args, library, nbytes, shape):
+def gather_case(fn, plain, args, library, nbytes, shape, flush):
     """One gather held against its plain version and timed beside the
-    PyTorch call that computes the same function; bytes-bound."""
+    PyTorch call that computes the same function (``library``, or None),
+    each with the L2 flushed before every call; bytes-bound."""
     import torch
 
     from nerf_fusion_tpu_torch.utils.timing import call_ms, device_ms
 
     out, ref = fn(*args), plain(*args)
     torch.cuda.synchronize()
-    return dict(err=nan_err(out, ref), shape=shape,
-                ms=device_ms(lambda: fn(*args), 100),
+    if isinstance(out, tuple):
+        err = max(nan_err(a.float(), b.float()) for a, b in zip(out, ref))
+    else:
+        err = nan_err(out, ref)
+    return dict(err=err, shape=shape,
+                ms=device_ms(lambda: fn(*args), 100, flush),
                 call_ms=call_ms(lambda: fn(*args), 100),
-                plain_ms=device_ms(lambda: plain(*args), 100),
-                library_ms=device_ms(library, 100), bound=bound_ms(0.0, nbytes))
+                plain_ms=device_ms(lambda: plain(*args), 100, flush),
+                library_ms=None if library is None else device_ms(library, 100, flush),
+                bound=bound_ms(0.0, nbytes))
 
 
 def gather_phase(dev, fr_next):
@@ -133,8 +155,10 @@ def gather_phase(dev, fr_next):
     from nerf_fusion_tpu_torch.ops import gather, imgproc
     from nerf_fusion_tpu_torch.system.frontend import preprocess_frame
     from nerf_fusion_tpu_torch.tools.gather_probe import warp_indices
+    from nerf_fusion_tpu_torch.utils.timing import l2_flush
 
     rng = np.random.default_rng(0)
+    flush = l2_flush(dev)
 
     def row_case(rows, idx, shape):
         n, c = rows.shape[0], 1 if rows.dim() == 1 else rows.shape[1]
@@ -143,7 +167,7 @@ def gather_phase(dev, fr_next):
         m = idx.shape[0]
         return gather_case(gather.row_gather, gather.row_gather_plain, (rows, idx),
                            lambda: torch.index_select(rows, 0, idx64),
-                           m * 4 + m * c * 4 + touched * c * 4, shape)
+                           m * 4 + m * c * 4 + touched * c * 4, shape, flush)
 
     # (N, 2) [intensity, depth] of a 640x480 frame at the stride-2 warp of
     # the dense photometric term (level 0: 76800 indices)
@@ -174,6 +198,24 @@ def gather_phase(dev, fr_next):
     rows4 = torch.stack([I0.reshape(-1), D0.reshape(-1), G0[0].reshape(-1),
                          G0[1].reshape(-1)], -1)
     select = row_case(rows4, sel_idx, f"({H * W}, 4) at {sel_idx.shape[0]}")
+    # the selection's gather as the fast path runs it: the sorted level-0
+    # scores and the four planes in place -> seven vectors; per selected
+    # pixel 12 bytes in (index, score) and 25 out, and one 32-byte sector of
+    # each plane for each distinct sector the selected pixels touch (a
+    # sector holds four stride-2 pixels of a row)
+    gx, gy = G0[0], G0[1]
+    grad2 = gx * gx + gy * gy
+    ok = torch.isfinite(grad2) & (grad2 >= 0.0) & torch.isfinite(D0)
+    ok &= (torch.arange(H, device=dev)[:, None] % 2 == 0) & \
+        (torch.arange(W, device=dev)[None, :] % 2 == 0)
+    vals, order = torch.sort(torch.where(ok, grad2, torch.full_like(grad2, -1.0)).reshape(-1),
+                             descending=True, stable=True)
+    kk = 24576
+    sectors = int(torch.unique(order[:kk].clamp(0, H * W - 1) // 8).numel())
+    sg_args = (vals, order, kk, W, (I0, D0, gx, gy))
+    fused = gather_case(gather.select_gather, gather.select_gather_plain, sg_args, None,
+                        kk * (12 + 25) + 4 * 32 * sectors, f"({H * W},) x 4 planes at {kk} "
+                        f"of {H * W} sorted, {sectors} sectors a plane", flush)
     plane = rows_p[:, 0].contiguous()
     single = row_case(plane, idx_p, f"({H * W},) at {H * W}")
 
@@ -194,12 +236,13 @@ def gather_phase(dev, fr_next):
     touched = int(torch.unique(row_ids[inr]).numel())
     lane = gather_case(gather.lane_gather, gather.lane_gather_plain, (src, lidx),
                        lambda: torch.gather(src, 1, lib_idx), H * B * 8 + touched * 4,
-                       f"({H}, {B}) at ({H}, {B})")
+                       f"({H}, {B}) at ({H}, {B})", flush)
     rows = [
         dict(name="row_gather", err=max(dense["err"], probe["err"], select["err"]), tol=0.0,
              source="nerf_fusion_tpu_torch/csrc/gather.cu",
              replaces="tools/gather_exp3.py:88 (pallas_gather)",
-             shape=select["shape"] + " (the fast path's selection)",
+             shape=select["shape"] + " (the selection's shape; the fast path runs "
+                                     "select_gather there)",
              ms=select["ms"], call_ms=select["call_ms"], plain_ms=select["plain_ms"],
              bound=select["bound"], library_ms=select["library_ms"],
              selection_matches_cpu=sel_match,
@@ -218,10 +261,20 @@ def gather_phase(dev, fr_next):
              replaces="tools/gather_exp4.py:72 (lane_gather)", shape=lane["shape"],
              ms=lane["ms"], call_ms=lane["call_ms"], plain_ms=lane["plain_ms"],
              bound=lane["bound"], library_ms=lane["library_ms"]),
+        dict(name="select_gather", err=fused["err"], tol=0.0,
+             source="nerf_fusion_tpu_torch/csrc/gather.cu",
+             replaces="tools/gather_exp3.py:88 (pallas_gather) at C = 4, with the rest of "
+                      "nerf_fusion_tpu/ops/imgproc.py:428-473 (select_photometric_pixels "
+                      "after its top_k)", shape=fused["shape"],
+             ms=fused["ms"], call_ms=fused["call_ms"], plain_ms=fused["plain_ms"],
+             bound=fused["bound"], library_ms=None),
     ]
-    for k, v in (("dense_warp", dense), ("probe", probe), ("selection_c4", select)):
+    print(f"gather rows timed with the L2 flushed before each call "
+          f"({torch.cuda.get_device_name(0)})", flush=True)
+    for k, v in (("dense_warp", dense), ("probe", probe), ("selection_c4", select),
+                 ("select_gather", fused)):
         if not v["err"] <= 0.0:
-            fail(f"row_gather ({k}) differs from its plain version: {v['err']}")
+            fail(f"{k} differs from its plain version: {v['err']}")
     if not sel_match:
         fail("select_photometric_pixels on the card differs from the CPU's selection")
     return rows
@@ -338,6 +391,76 @@ def photometric_phase(dev, seq):
                     ms=v["ms"], call_ms=v["call_ms"], plain_ms=v["plain_ms"],
                     bound_ms=v["bound"][0], bound_by=v["bound"][1])
                for k, v in cases.items()])]
+
+
+def gn_phase(dev, seq, model):
+    """The GN step kernel against its plain version on the (H, g, energy,
+    state) sequences of real frames: frame 10 integrated into a fresh map
+    at its ground-truth pose, frame 11 tracked eagerly against it with the
+    config's schedule, dense and with the fast path's 24576-pixel
+    selection.  Every step the loop took is recorded and replayed on copies
+    of its state: the new poses within TOL_GN of their largest entry, the
+    decisions (done, used, i, iters, the best energy) equal."""
+    import torch
+
+    from nerf_fusion_tpu_torch.ops import gn
+    from nerf_fusion_tpu_torch.system import tracker as T
+    from nerf_fusion_tpu_torch.system.map import SparseVoxelMap
+    from nerf_fusion_tpu_torch.utils.config import dict_to_args, parse_config_yaml
+    from nerf_fusion_tpu_torch.utils.timing import call_ms, device_ms
+
+    args = parse_config_yaml(REPO / CONFIG)
+    f0, f1 = seq.render_frame(10), seq.render_frame(11)
+    c = f0.calib
+    vmap = SparseVoxelMap(model, dict_to_args(args.mapping), 29, dev)
+    tracker = T.SDFTracker(vmap, args.tracking, point_budget=40960)
+    pre0 = tracker.preprocess(f0.rgb, f0.depth, c)
+    pre1 = tracker.preprocess(f1.rgb, f1.depth, c)
+    R0 = torch.as_tensor(f0.gt_pose.q.rotation_matrix, dtype=torch.float32, device=dev)
+    t0 = torch.as_tensor(f0.gt_pose.t, dtype=torch.float32, device=dev)
+    vmap.integrate_keyframe(pre0.points, pre0.normals, pre0.mask, pose=(R0, t0))
+    steps = []
+
+    def record(H, g, energy, state, group, n_iters):
+        steps.append((H.clone(), g.clone(), energy.clone(),
+                      gn.GNState(*(x.clone() for x in state)), group, n_iters))
+        gn.gn_step(H, g, energy, state, group, n_iters)
+
+    for budget in (0, 24576):
+        tcfg = tracker.tcfg._replace(rgb_pixel_budget=budget)
+        T.track_gauss_newton(vmap.state, vmap.cfg, model.decoder, tcfg, pre0.pyramid,
+                             pre1.pyramid, pre1.points[:8192], pre1.mask[:8192], R0, t0,
+                             torch.eye(3, device=dev), torch.zeros(3, device=dev),
+                             c.fx, c.fy, c.cx, c.cy, tracker.rgb_weight, vmap.bound_min,
+                             step=record)
+    err, same = 0.0, True
+    for H, g, energy, state, group, n_iters in steps:
+        a = gn.GNState(*(x.clone() for x in state))
+        b = gn.GNState(*(x.clone() for x in state))
+        gn.gn_step(H, g, energy, a, group, n_iters)
+        gn.gn_step_plain(H, g, energy, b, group, n_iters)
+        torch.cuda.synchronize()
+        scale = max(float(b.pose[:24].abs().max()), 1.0)
+        err = max(err, float((a.pose[:24] - b.pose[:24]).abs().max()) / scale)
+        same &= (torch.equal(a.ints, b.ints) and torch.equal(a.done, b.done)
+                 and torch.equal(a.iters, b.iters) and torch.equal(a.pose[24:], b.pose[24:]))
+    H, g, energy, state, group, n_iters = steps[len(steps) // 2]
+    work = gn.GNState(*(x.clone() for x in state))
+    # one thread's solve, exp and compose: about 600 operations; 280 bytes in
+    # (H, g, energy, pose, ints) and 113 out (pose, ints, done, iters)
+    print(f"gn_step: {len(steps)} recorded steps of frame 11 (dense and sparse), pose "
+          f"max rel err {err:.3e}, decisions equal {same}", flush=True)
+    if not same:
+        fail("gn_step's decisions differ from its plain version's")
+    return [dict(
+        name="gn_step", err=err, tol=TOL_GN, source="nerf_fusion_tpu_torch/csrc/gn.cu",
+        replaces="none (no Pallas source): the while_loop body of "
+                 "nerf_fusion_tpu/system/tracker.py:288-310",
+        shape=f"(6, 6) + (6,) + () + state, {len(steps)} recorded steps",
+        ms=device_ms(lambda: gn.gn_step(H, g, energy, work, group, n_iters), 100),
+        call_ms=call_ms(lambda: gn.gn_step(H, g, energy, work, group, n_iters), 100),
+        plain_ms=device_ms(lambda: gn.gn_step_plain(H, g, energy, work, group, n_iters), 20),
+        bound=bound_ms(600.0, 280 + 113), library_ms=None, recorded_steps=len(steps))]
 
 
 def kernel_phase(dev):
@@ -508,6 +631,7 @@ def kernel_phase(dev):
 
     rows += gather_phase(dev, seq.render_frame(1))
     rows += photometric_phase(dev, seq)
+    rows += gn_phase(dev, seq, model)
     # the stencil rows once more, after the photometric phase, event by event
     for r in rows:
         if r["name"] in retime:
@@ -559,7 +683,7 @@ def kernel_phase(dev):
 
 KERNEL_ROWS = ("decoder_forward", "decoder_forward_grad", "encoder_forward",
                "stencil_count", "stencil_normals", "stencil_frontend", "row_gather",
-               "row_gather_c1", "lane_gather", "photometric_hg")
+               "row_gather_c1", "lane_gather", "photometric_hg", "select_gather", "gn_step")
 
 
 def ptxas_report(report: dict):
@@ -609,38 +733,49 @@ def tensor_core_counts() -> dict:
 
 
 def zero_launches():
-    from nerf_fusion_tpu_torch.ops import gather, mlp, photometric, stencil
+    from nerf_fusion_tpu_torch.ops import launches
 
-    for w in (mlp.decoder_forward, mlp.decoder_forward_grad, mlp.encoder_forward,
-              stencil.neighbor_count, stencil.normals_stencil, stencil.frontend_points,
-              photometric.photometric_hg):
-        w.launches = 0
-    gather.reset_launches()
+    launches.reset()
 
 
 def read_launches() -> dict:
     """Launches per kernel row; the row gather is split by row width: C = 2
     and 4 are ``pallas_gather``'s counterpart, C = 1 ``pallas_gather1``'s."""
-    from nerf_fusion_tpu_torch.ops import gather, mlp, photometric, stencil
+    from nerf_fusion_tpu_torch.ops import launches
 
-    by_c = gather.row_gather.launches_by_c
-    return {"decoder_forward": mlp.decoder_forward.launches,
-            "decoder_forward_grad": mlp.decoder_forward_grad.launches,
-            "encoder_forward": mlp.encoder_forward.launches,
-            "stencil_count": stencil.neighbor_count.launches,
-            "stencil_normals": stencil.normals_stencil.launches,
-            "stencil_frontend": stencil.frontend_points.launches,
-            "row_gather": by_c[2] + by_c[4], "row_gather_c1": by_c[1],
-            "lane_gather": gather.lane_gather.launches,
-            "photometric_hg": photometric.photometric_hg.launches,
-            "row_gather_by_width": dict(by_c)}
+    n = launches.snapshot()
+    by_c = {c: n[f"row_gather_c{c}"] for c in (1, 2, 4)}
+    out = {k: v for k, v in n.items() if not k.startswith("row_gather")}
+    out.update(row_gather=by_c[2] + by_c[4], row_gather_c1=by_c[1], row_gather_by_width=by_c)
+    return out
+
+
+def trace_counts(prof) -> tuple:
+    """(this repo's kernels by counter, all device kernels) in a trace."""
+    from torch.autograd import DeviceType
+
+    from nerf_fusion_tpu_torch.ops import launches
+
+    mine, total = dict.fromkeys(launches.NAMES, 0), 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or e.name.startswith(("Memcpy", "Memset")):
+            continue
+        total += 1
+        name = launches.counter_of(e.name)
+        if name is not None:
+            mine[name] += 1
+    return mine, total
 
 
 def fusion_path(dev, label: str, exec_: str = None):
-    """The fusion loop through its entry point, launch counters zeroed."""
+    """The fusion loop through its entry point, launch counters zeroed, in a
+    profiler trace: the counters must equal the trace's kernels."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from nerf_fusion_tpu_torch import main as entry
+    from nerf_fusion_tpu_torch.ops import launches
+    from nerf_fusion_tpu_torch.tools.graph_check import graph_vs_eager
 
     out_dir = REPO / "output" / "chip_smoke" / label
     argv = [str(REPO / CONFIG), "--device", str(dev), "--output", str(out_dir)]
@@ -649,21 +784,31 @@ def fusion_path(dev, label: str, exec_: str = None):
     torch.cuda.synchronize()
     zero_launches()
     t0 = time.perf_counter()
-    res = entry.main(argv)
-    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipe, res = entry.run(argv)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches()
+    counted = launches.snapshot()
+    launches_ = read_launches()
+    traced, total = trace_counts(prof)
+    tr = pipe.tracker
     n = res["n_frames"]
+    tracked = tr.n_tracked - 1
     stages = {k: round(v["mean_ms"], 3) for k, v in res["timing"].items()}
     print(f"{label} path: {n} frames in {wall:.2f} s ({n / wall:.2f} fps incl. "
-          f"rendering and output), stage mean ms {stages}", flush=True)
+          f"rendering, output and the profiler), stage mean ms {stages}", flush=True)
+    print(f"{label} path: per tracked frame {tr.graph_replays / tracked:.2f} graph replays, "
+          f"{tr.host_reads / tracked:.2f} host reads; {total / n:.1f} kernels per frame in "
+          f"the trace ({torch.cuda.get_device_name(0)})", flush=True)
     print(f"{label} path: ATE {1e3 * res['ate_rmse']:.3f} mm, mesh |SDF| "
           f"{1e3 * res.get('mesh_abs_sdf', float('nan')):.3f} mm, "
           f"{res['n_triangles']} triangles, box-filter drop_frac "
-          f"{res['box_filter_drop_frac']}, launches {launches}", flush=True)
+          f"{res['box_filter_drop_frac']}, launches {launches_}", flush=True)
     if "mesh_reuse" in res:
         print(f"{label} path: latent-reuse gate skipped {res['mesh_reuse']['skipped']} "
               f"of {res['mesh_reuse']['updated']} updated voxels", flush=True)
+    if traced != counted:
+        fail(f"{label}: launch counters {counted} differ from the trace's kernels {traced}")
     if res["box_filter_drop_frac"]["max"] != 0.0:
         fail(f"{label}: box filter dropped points: {res['box_filter_drop_frac']}")
     if not res["ate_rmse"] < 0.02:
@@ -672,7 +817,17 @@ def fusion_path(dev, label: str, exec_: str = None):
         fail(f"{label}: mesh |SDF| {res.get('mesh_abs_sdf')} m >= 0.02")
     if res["n_triangles"] <= 0:
         fail(f"{label}: empty mesh")
-    return launches, res
+    if tr.graph_replays <= 0 or tr.host_reads > tr.graph_replays:
+        fail(f"{label}: {tr.graph_replays} graph replays, {tr.host_reads} host reads")
+    # one evaluation of each group through its graph and eagerly, bitwise
+    for group in range(len(tr.tcfg.iter_config)):
+        got, ref = graph_vs_eager(tr, group)
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            fail(f"{label}: group {group}'s captured evaluation differs from the eager "
+                 f"one: {[float((a - b).abs().max()) for a, b in zip(got, ref)]}")
+    print(f"{label} path: launch counters equal the trace's kernels; H, g, energy of each "
+          f"group's captured evaluation bitwise equal to the eager call", flush=True)
+    return launches_, res
 
 
 def probe_path(label: str, probe):
@@ -692,9 +847,9 @@ def probe_path(label: str, probe):
 def check_launches(paths: dict):
     required = {
         "dense": ("decoder_forward", "decoder_forward_grad", "encoder_forward",
-                  "stencil_frontend", "photometric_hg"),
+                  "stencil_frontend", "photometric_hg", "gn_step"),
         "fast": ("decoder_forward", "decoder_forward_grad", "encoder_forward",
-                 "stencil_frontend", "photometric_hg", "row_gather"),
+                 "stencil_frontend", "photometric_hg", "gn_step", "select_gather"),
         "probe": ("row_gather", "row_gather_c1", "lane_gather"),
         "frontend_probe": ("stencil_count", "stencil_normals", "stencil_frontend"),
     }
@@ -702,13 +857,14 @@ def check_launches(paths: dict):
         for name in names:
             if paths[label][name] <= 0:
                 fail(f"kernel {name} was not launched on the {label} path")
-    # the dense and sparse warps gather inside the photometric kernel; the
-    # selection's (N, 4) gather stays on the fast path
-    widths = {"fast": (4,), "probe": (1, 2, 4)}
-    for label, cs in widths.items():
-        for c in cs:
-            if paths[label]["row_gather_by_width"][c] <= 0:
-                fail(f"row_gather at width {c} was not launched on the {label} path")
+    # the warps gather inside the photometric kernel and the selection in
+    # select_gather: the row gather runs on the probe only
+    for label in ("dense", "fast", "fpc19"):
+        if any(paths[label]["row_gather_by_width"].values()):
+            fail(f"row_gather ran on the {label} path: {paths[label]['row_gather_by_width']}")
+    for c in (1, 2, 4):
+        if paths["probe"]["row_gather_by_width"][c] <= 0:
+            fail(f"row_gather at width {c} was not launched on the probe path")
     for name in KERNEL_ROWS:
         if sum(p[name] for p in paths.values()) <= 0:
             fail(f"kernel {name} was launched on no path")
@@ -728,7 +884,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
-          f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)}", flush=True)
+          f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)}; capture into "
+          f"a conditional WHILE node: "
+          f"{hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_while_loop_node')}", flush=True)
     t0 = time.perf_counter()
     report = cuda_build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(report)}", flush=True)
@@ -736,8 +894,14 @@ def main() -> int:
     tensor_cores = tensor_core_counts()
     rows = kernel_phase(dev)
     paths = {}
-    paths["dense"], _ = fusion_path(dev, "dense")
+    paths["dense"], dense = fusion_path(dev, "dense")
     paths["fast"], _ = fusion_path(dev, "fast", FAST_EXEC)
+    # 19 tracking-only frames fill the 20-frame cadence
+    paths["fpc19"], block = fusion_path(dev, "fpc19", "frames_per_call=19")
+    for key in ("ate_rmse", "mesh_abs_sdf"):
+        if not abs(block[key] - dense[key]) <= 3e-4:
+            fail(f"frames_per_call = 19: {key} {block[key]} m against the per-frame "
+                 f"run's {dense[key]} m")
     paths["probe"], _ = probe_path("gather", gather_probe)
     paths["frontend_probe"], _ = probe_path("frontend", preprocess_probe)
     check_launches(paths)
@@ -760,7 +924,7 @@ def main() -> int:
             **{k: r[k] for k in ("grad_err", "grad_tol", "grad_within_tol", "count_err",
                                  "normal_agree_frac", "mask_diff", "pts_equal",
                                  "off_mask_zero", "repeat_equal", "ms_again",
-                                 "selection_matches_cpu", "cases")
+                                 "selection_matches_cpu", "recorded_steps", "cases")
                if k in r}})
     if sorted(k["name"] for k in kernels) != sorted(KERNEL_ROWS):
         fail(f"kernel rows {[k['name'] for k in kernels]} are not {KERNEL_ROWS}")

@@ -10,6 +10,9 @@
 //       the single-plane variant;
 //   lane_gather   <- tools/gather_exp4.py:72 lane_gather (call :80):
 //       take_along_axis(axis=1) over (H, B) row windows.
+//   select_gather <- the same pallas_gather at C = 4 where the tracker runs
+//       it: everything of imgproc.select_photometric_pixels after the sort
+//       (the JAX package's imgproc.py:428-473), in one launch.
 //
 // What bounds them on an H100: bytes.  A 640x480 warp gather reads the
 // 1.2 MB index vector, writes 2.4 MB and touches at most the 2.4 MB source,
@@ -76,6 +79,40 @@ __global__ void __launch_bounds__(kLaneThreads)
   }
 }
 
+// select_gather: one thread per selected pixel k < kk.  It reads the k-th
+// sorted score and flat index, and the four planes (intensity, depth, gx,
+// gy; (H*W,) f32 each) in place at that index, clamped into [0, n-1] as
+// jnp.take(..., mode="clip"); it writes u = idx % w, v = idx / w (exact in
+// f32 below 2^24), the four values, and valid = score >= 0, each to its own
+// contiguous vector (the layout photometric_hg's sparse variant reads).
+// What bounds it: bytes, 12 in and 25 out per pixel plus one 32-byte sector
+// per plane for each distinct sector the pixels touch (one sector holds four
+// stride-2 pixels of a row); at the fast path's 24576 pixels that is under
+// 4 MB, about a microsecond at 3.35 TB/s, so the launch sets its time.  It
+// replaces the slice, compare, modulo, division, casts, the (H*W, 4) stack,
+// the index cast, row_gather<4> and the transpose: about ten launches per
+// level.
+__global__ void __launch_bounds__(kRowThreads)
+    select_gather_kernel(const float* __restrict__ vals, const int64_t* __restrict__ idx,
+                         int kk, int w, int n, const float* __restrict__ inten,
+                         const float* __restrict__ depth, const float* __restrict__ gx,
+                         const float* __restrict__ gy, float* __restrict__ u,
+                         float* __restrict__ v, float* __restrict__ i1,
+                         float* __restrict__ d1, float* __restrict__ gxo,
+                         float* __restrict__ gyo, uint8_t* __restrict__ valid) {
+  const int k = blockIdx.x * kRowThreads + threadIdx.x;
+  if (k >= kk) return;
+  const int64_t p = idx[k];
+  const int j = static_cast<int>(min(max(p, (int64_t)0), (int64_t)(n - 1)));
+  u[k] = static_cast<float>(p % w);
+  v[k] = static_cast<float>(p / w);
+  i1[k] = inten[j];
+  d1[k] = depth[j];
+  gxo[k] = gx[j];
+  gyo[k] = gy[j];
+  valid[k] = vals[k] >= 0.f ? 1 : 0;
+}
+
 template <int C>
 int launch_rows(const void* rows, int n, const int32_t* idx, int m, void* out,
                 void* stream) {
@@ -115,6 +152,21 @@ int lane_gather(const float* src, const int32_t* idx, int h, int b, float* out,
   const size_t smem = (size_t)b * sizeof(float);
   lane_gather_kernel<<<h, kLaneThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(src, idx, b, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// vals (>= kk,) f32 and idx (>= kk,) i64: a stable descending sort's output;
+// the four (n,) f32 planes of a w-wide level -> u, v, i1, d1, gx, gy (kk,)
+// f32 and valid (kk,) u8.
+int select_gather(const float* vals, const int64_t* idx, int kk, int w, int n,
+                  const float* inten, const float* depth, const float* gx,
+                  const float* gy, float* u, float* v, float* i1, float* d1, float* gxo,
+                  float* gyo, uint8_t* valid, void* stream) {
+  if (kk <= 0) return 0;
+  if (w <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  select_gather_kernel<<<(kk + kRowThreads - 1) / kRowThreads, kRowThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      vals, idx, kk, w, n, inten, depth, gx, gy, u, v, i1, d1, gxo, gyo, valid);
   return static_cast<int>(cudaGetLastError());
 }
 

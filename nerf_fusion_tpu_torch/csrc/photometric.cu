@@ -67,7 +67,8 @@ struct Args {
   int n, gw, stride;
   const float* krkinv;     // (3, 3) K R K^-1
   const float* kt;         // (3,) K t
-  float fx, fy, cx, cy, min_grad, max_dd, robust_k, rgb_weight;
+  float fx, fy, cx, cy, min_grad, max_dd, robust_k;
+  const float* rgb_weight;  // () f32 on the device: the tracker's state machine sets it
   int robust;              // 0 none, 1 huber, 2 tukey
   float* partials;         // (gridDim.x, kPad)
   unsigned int* ticket;    // 0 between launches
@@ -211,7 +212,7 @@ __global__ void __launch_bounds__(kThreads) photometric_kernel(const Args a) {
   const float count = __shfl_sync(0xffffffffu, tot, 28);
   // scale = rgb_weight / max(count, 1), as PyTorch evaluates a Python
   // scalar over a tensor: reciprocal, then product
-  const float scale = __fmul_rn(__frcp_rn(fmaxf(count, 1.f)), a.rgb_weight);
+  const float scale = __fmul_rn(__frcp_rn(fmaxf(count, 1.f)), *a.rgb_weight);
   if (lane < 21) {
     int r = 0, c = lane;
     while (c >= 6 - r) {
@@ -253,7 +254,7 @@ int launch(Args& a, int max_blocks, void* stream, bool sparse) {
 
 Args common(const float* prev, int W, int H, const float* krkinv, const float* kt,
             float fx, float fy, float cx, float cy, float max_dd, int robust,
-            float robust_k, float rgb_weight, float* partials, unsigned int* ticket,
+            float robust_k, const float* rgb_weight, float* partials, unsigned int* ticket,
             float* out) {
   Args a = {};
   a.prev = reinterpret_cast<const float2*>(prev);
@@ -288,7 +289,7 @@ int photometric_hg_dense(const float* prev, int W, int H, const float* intensity
                          const float* depth, const float* grad, int stride,
                          const float* krkinv, const float* kt, float fx, float fy,
                          float cx, float cy, float min_grad, float max_dd, int robust,
-                         float robust_k, float rgb_weight, float* partials,
+                         float robust_k, const float* rgb_weight, float* partials,
                          int max_blocks, unsigned int* ticket, float* out,
                          void* stream) {
   if (W <= 0 || H <= 0 || stride < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -312,7 +313,7 @@ int photometric_hg_sparse(const float* prev, int W, int H, const float* u,
                           const float* gx, const float* gy, const uint8_t* valid, int n,
                           const float* krkinv, const float* kt, float fx, float fy,
                           float cx, float cy, float max_dd, int robust, float robust_k,
-                          float rgb_weight, float* partials, int max_blocks,
+                          const float* rgb_weight, float* partials, int max_blocks,
                           unsigned int* ticket, float* out, void* stream) {
   if (W <= 0 || H <= 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
   Args a = common(prev, W, H, krkinv, kt, fx, fy, cx, cy, max_dd, robust, robust_k,

@@ -12,6 +12,7 @@ into ``--output``.  Runs on the GPU unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import importlib
+import inspect
 import logging
 
 import torch
@@ -30,7 +31,21 @@ def build_sequence(args, device):
         raise NotImplementedError(
             f"sequence type {args.sequence_type!r} is not ported yet") from e
     cls = getattr(module, seq_class)
-    return cls(load_gt=True, device=device, **args.sequence_kwargs)
+    kwargs = dict(args.sequence_kwargs)
+    # first_tq stays in the config for the readers that take it (ICL-NUIM's
+    # puts its ground truth in the frame of first_iso with it)
+    if "first_tq" not in inspect.signature(cls).parameters:
+        kwargs.pop("first_tq", None)
+    return cls(load_gt=True, device=device, **kwargs)
+
+
+def set_first_iso(args):
+    """``first_iso`` from ``sequence_kwargs['first_tq']`` ([tx, ty, tz, qx,
+    qy, qz, qw]) where the config gives one; ``first_tq`` stays, as the
+    JAX entry point leaves it, for the sequence readers that take it."""
+    tq = getattr(args, "sequence_kwargs", {}).get("first_tq")
+    if tq is not None:
+        args.first_iso = Isometry(q=Quaternion(array=tq[3:]), t=tq[:3])
 
 
 def resolve_device(name: str) -> torch.device:
@@ -42,6 +57,11 @@ def resolve_device(name: str) -> torch.device:
 
 
 def main(argv=None):
+    return run(argv)[1]
+
+
+def run(argv=None):
+    """The entry point's work: (the pipeline, its results)."""
     parser = exp_util.ArgumentParserX()
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
@@ -63,9 +83,7 @@ def main(argv=None):
     args.model = model_args
     args.mapping = exp_util.dict_to_args(args.mapping)
     args.tracking = exp_util.dict_to_args(args.tracking)
-    if getattr(args, "sequence_kwargs", {}).get("first_tq") is not None:
-        tq = args.sequence_kwargs.pop("first_tq")
-        args.first_iso = Isometry(q=Quaternion(array=tq[3:]), t=tq[:3])
+    set_first_iso(args)
 
     sequence = build_sequence(args, device)
     pipeline = FusionPipeline(model, args, device)
@@ -75,7 +93,7 @@ def main(argv=None):
     results = pipeline.run(sequence, use_gt_pose=bool(args.gt_pose),
                            max_frames=args.max_frames, output_dir=args.output)
     logging.info("results: %s", results)
-    return results
+    return pipeline, results
 
 
 if __name__ == "__main__":

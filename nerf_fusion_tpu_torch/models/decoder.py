@@ -6,7 +6,8 @@ layer, ``std = 0.05 + 0.5 softplus(unc(h))`` read from the activation
 entering the last layer, and ``sdf = tanh(lin4(h))``.  Weight-norm is
 folded into plain (in, out) matrices when the module is built; the forward
 pass runs the hand-written CUDA kernel (``ops.mlp``) on the card and its
-plain version on the CPU.  Matrix products are f32, or on the card the
+plain version on the CPU; ``ops.mlp.decoder_forward_grad`` on the packed
+weights adds the input gradient (``system.map.get_sdf``).  Matrix products are f32, or on the card the
 3xTF32 split, which is as exact (not one-pass TF32): the tracker's
 Jacobians need those digits.
 """
@@ -41,28 +42,3 @@ class Decoder(nn.Module):
         """(N, 32) -> (sdf (N, 1), std (N, 1))."""
         out = mlp.decoder_forward(net_in.contiguous(), self.packed, self.mats)
         return out[:, 0:1], out[:, 1:2]
-
-    def sdf_with_grad(self, latent: torch.Tensor, rel: torch.Tensor):
-        """(sdf (N,), std (N,)) differentiable w.r.t. ``rel`` (N, 3) only.
-
-        ``latent`` and ``std`` carry no gradient (the tracker divides by a
-        stop-gradient std); the kernel computes d sdf / d rel in forward
-        mode alongside the outputs."""
-        return _SDFWithInputGrad.apply(rel, latent, self)
-
-
-class _SDFWithInputGrad(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, rel, latent, decoder):
-        x = torch.cat([latent.detach(), rel.detach()], dim=1).contiguous()
-        out, grad = mlp.decoder_forward_grad(x, decoder.packed, decoder.mats)
-        ctx.save_for_backward(grad)
-        sdf = out[:, 0].contiguous()
-        std = out[:, 1].contiguous()
-        ctx.mark_non_differentiable(std)
-        return sdf, std
-
-    @staticmethod
-    def backward(ctx, grad_sdf, grad_std):
-        (grad,) = ctx.saved_tensors
-        return grad_sdf[:, None] * grad, None, None

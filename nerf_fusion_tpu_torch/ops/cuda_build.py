@@ -22,7 +22,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("mlp", "stencil", "gather", "photometric")
+SOURCES = ("mlp", "stencil", "gather", "photometric", "gn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -44,12 +44,16 @@ SIGNATURES = {
     "gather": {
         "row_gather": (_P, _I, _I, _P, _I, _P, _P),
         "lane_gather": (_P, _P, _I, _I, _P, _P),
+        "select_gather": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
     },
     "photometric": {
         "photometric_hg_dense": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _F, _F, _F, _F,
-                                 _F, _F, _I, _F, _F, _P, _I, _P, _P, _P),
+                                 _F, _F, _I, _F, _P, _P, _I, _P, _P, _P),
         "photometric_hg_sparse": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
-                                  _F, _F, _F, _F, _F, _I, _F, _F, _P, _I, _P, _P, _P),
+                                  _F, _F, _F, _F, _F, _I, _F, _P, _P, _I, _P, _P, _P),
+    },
+    "gn": {
+        "gn_step": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     },
 }
 

@@ -11,10 +11,17 @@ Counterparts of the Pallas gathers of the JAX package's probes
     (H, B): ``jnp.take_along_axis(src, idx, axis=1)``.  A negative index
     wraps once (-1 is the last lane); an index >= B or < -B gives NaN.
 
+  * ``select_gather(vals, idx, kk, w, planes)``  the end of the sparse
+    photometric term's pixel selection (``imgproc.select_photometric_pixels``):
+    from the first ``kk`` entries of a descending sort of the scores, the
+    pixel coordinates, the four planes' values at those pixels and the
+    validity, as seven (kk,) vectors, in one launch.  It replaces the
+    selection's (N, 4) ``row_gather`` and the PyTorch ops around it.
+
 A wrapper launches its kernel for a CUDA tensor (or raises) and takes the
-plain version beside it only for a CPU tensor.  ``lane_gather.launches``
-counts its kernel launches, ``row_gather.launches_by_c`` its launches per
-row width.
+plain version beside it only for a CPU tensor.  ``lane_gather.launches`` and
+``select_gather.launches`` count their kernel launches,
+``row_gather.launches_by_c`` its launches per row width.
 """
 
 from __future__ import annotations
@@ -38,6 +45,57 @@ def lane_gather_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     ok = (j >= 0) & (j < B)
     got = torch.gather(src, 1, j.clamp(0, B - 1))
     return torch.where(ok, got, torch.full_like(got, float("nan")))
+
+
+def select_gather_plain(vals, idx, kk: int, w: int, planes):
+    """(u, v, i1, d1, gx, gy, valid): the composition the kernel replaces."""
+    vals, idx = vals[:kk], idx[:kk]
+    valid = vals >= 0.0
+    u = (idx % w).to(torch.float32)
+    v = (idx // w).to(torch.float32)
+    rows = torch.stack([p.reshape(-1) for p in planes], dim=-1)
+    cols = row_gather(rows, idx.to(torch.int32)).T.contiguous()
+    return u, v, cols[0], cols[1], cols[2], cols[3], valid
+
+
+def select_gather(vals: torch.Tensor, idx: torch.Tensor, kk: int, w: int, planes):
+    """The selected pixels of a sorted score plane.
+
+    :param vals, idx: ``torch.sort(score, descending=True, stable=True)`` of
+        the (H*W,) scores (f32, int64).
+    :param planes: (intensity, depth, gx, gy), each (H, W) f32 with W = w.
+    :return: u, v, i1, d1, gx, gy (kk,) f32 and valid (kk,) bool.
+    """
+    what = "select_gather"
+    planes = tuple(planes)
+    n = vals.shape[0] if vals.dim() == 1 else -1
+    if vals.dtype != torch.float32 or vals.dim() != 1:
+        raise ValueError(f"{what}: vals must be (N,) float32, got {tuple(vals.shape)} "
+                         f"{vals.dtype}")
+    if idx.dtype != torch.int64 or tuple(idx.shape) != (n,):
+        raise ValueError(f"{what}: idx must be ({n},) int64, got {tuple(idx.shape)} "
+                         f"{idx.dtype}")
+    if len(planes) != 4 or any(p.dtype != torch.float32 or p.numel() != n
+                               or p.dim() != 2 or p.shape[1] != w for p in planes):
+        raise ValueError(f"{what}: planes must be four (H, {w}) float32 planes of {n} "
+                         "pixels")
+    if not 0 <= kk <= n or n >= 2 ** 31:
+        raise ValueError(f"{what}: kk {kk} of {n} pixels")
+    if cuda_build.on_cpu(what, vals, idx, *planes):
+        return select_gather_plain(vals, idx, kk, w, planes)
+    dev = vals.device
+    vals, idx = vals.contiguous(), idx.contiguous()
+    planes = tuple(p.contiguous() for p in planes)
+    out = tuple(torch.empty(kk, dtype=torch.float32, device=dev) for _ in range(6))
+    valid = torch.empty(kk, dtype=torch.bool, device=dev)
+    if kk > 0:
+        lib = cuda_build.load("gather")
+        cuda_build.check(lib.select_gather(
+            vals.data_ptr(), idx.data_ptr(), kk, w, n, *(p.data_ptr() for p in planes),
+            *(t.data_ptr() for t in out), valid.data_ptr(), cuda_build.stream_ptr(dev)),
+            what)
+        select_gather.launches += 1
+    return out + (valid,)
 
 
 def row_gather(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -102,6 +160,7 @@ def lane_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def reset_launches():
     row_gather.launches_by_c = dict.fromkeys(ROW_WIDTHS, 0)
     lane_gather.launches = 0
+    select_gather.launches = 0
 
 
 reset_launches()

@@ -17,13 +17,14 @@ Counterparts of the JAX package's ``ops/imgproc.py``:
 
 The TPU layout tricks of the JAX versions (one-hot lane-selection matmuls
 for strided slices) are plain slices here: they select the same values.
-The gathers go through the row-gather kernel (``ops.gather``).  The two
+The gathers go through the gather kernels (``ops.gather``).  The two
 photometric terms are the first half of the plain version of the tracker's
 photometric kernel (``ops.photometric``), which the tracker calls.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -73,11 +74,18 @@ def _half_resize_weights(n_in: int) -> np.ndarray:
     return M
 
 
+@functools.lru_cache(maxsize=None)
+def _half_resize_matrix(n_in: int, device: torch.device) -> torch.Tensor:
+    """``_half_resize_weights`` on ``device``, copied there once: a copy from
+    the host cannot be captured in a CUDA graph."""
+    return torch.as_tensor(_half_resize_weights(n_in), device=device)
+
+
 def resize_half_bilinear(img: torch.Tensor) -> torch.Tensor:
     """Halve H, W with align_corners bilinear; finite inputs only."""
     H, W = img.shape
-    Wy = torch.as_tensor(_half_resize_weights(H), device=img.device)
-    Wx = torch.as_tensor(_half_resize_weights(W), device=img.device)
+    Wy = _half_resize_matrix(H, img.device)
+    Wx = _half_resize_matrix(W, img.device)
     return (Wy @ img) @ Wx.T
 
 
@@ -352,15 +360,8 @@ def select_photometric_pixels(cur_intensity, cur_depth, cur_dIdxy, k: int,
     score = torch.where(ok, grad2, torch.full_like(grad2, -1.0)).reshape(-1)
     kk = min(k, ((h - 1) // stride + 1) * ((w - 1) // stride + 1))
     vals, idx = torch.sort(score, descending=True, stable=True)
-    vals, idx = vals[:kk], idx[:kk]
-    valid = vals >= 0.0
-    u = (idx % w).to(torch.float32)
-    v = (idx // w).to(torch.float32)
-    rows = torch.stack([cur_intensity.reshape(-1), cur_depth.reshape(-1),
-                        gx.reshape(-1), gy.reshape(-1)], dim=-1)
-    # one contiguous vector per column: the photometric kernel reads them so
-    cols = gather.row_gather(rows, idx.to(torch.int32)).T.contiguous()
-    return u, v, cols[0], cols[1], cols[2], cols[3], valid
+    # one contiguous vector per output: the photometric kernel reads them so
+    return gather.select_gather(vals, idx, kk, w, (cur_intensity, cur_depth, gx, gy))
 
 
 def rgb_odometry_sparse(prev_rows, W: int, H: int, pix, fx, fy, cx, cy,

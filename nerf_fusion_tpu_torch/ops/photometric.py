@@ -77,7 +77,9 @@ def photometric_hg_plain(prev_rows, level, krkinv, kt, fx, fy, cx, cy, *,
     m = ok.to(f.dtype)
     w = robust_weight(f, robust_kernel, robust_k) * m
     count = m.sum()
-    scale = rgb_weight / torch.clamp_min(count, 1.0)
+    # rgb_weight / max(count, 1) as PyTorch evaluates a Python scalar over a
+    # tensor: reciprocal, then product (for a float or a () tensor alike)
+    scale = torch.reciprocal(torch.clamp_min(count, 1.0)) * rgb_weight
     J2, f2, w2 = J.reshape(6, -1), f.reshape(-1), w.reshape(-1)
     H = ((J2 * w2[None]) @ J2.T) * scale
     g = (J2 @ (w2 * f2)) * scale
@@ -90,7 +92,8 @@ _WORKSPACE: dict = {}
 
 def _workspace(device):
     """Per device: the block partials and the ticket (zero between launches;
-    the kernel's last block resets it)."""
+    the kernel's last block resets it).  Allocated at the first call, which
+    on the tracker's path is the eager warm-up before any graph capture."""
     ws = _WORKSPACE.get(device)
     if ws is None:
         ws = (torch.empty(MAX_BLOCKS * 32, dtype=torch.float32, device=device),
@@ -107,8 +110,12 @@ def _check_f32(what, name, t, shape):
 
 def photometric_hg(prev_rows, level, krkinv, kt, fx, fy, cx, cy, *,
                    min_grad_scale: float, max_depth_delta: float, stride: int,
-                   robust_kernel, robust_k: float, rgb_weight: float):
-    """The photometric term at one level: (H (6, 6), g (6,), energy (), count ())."""
+                   robust_kernel, robust_k: float, rgb_weight):
+    """The photometric term at one level: (H (6, 6), g (6,), energy (), count ()).
+
+    ``rgb_weight``: a float or a () float32 tensor on the operands' device;
+    the kernel reads it through a pointer, so a captured graph sees the
+    value the tracker's state machine sets."""
     what = "photometric_hg"
     if robust_kernel not in ROBUST_KERNELS:
         raise NotImplementedError(robust_kernel)
@@ -146,9 +153,14 @@ def photometric_hg(prev_rows, level, krkinv, kt, fx, fy, cx, cy, *,
     dev = prev_rows.device
     partials, ticket = _workspace(dev)
     out = torch.empty(_OUT, dtype=torch.float32, device=dev)
+    if not torch.is_tensor(rgb_weight):
+        rgb_weight = torch.full((), float(rgb_weight), dtype=torch.float32, device=dev)
+    _check_f32(what, "rgb_weight", rgb_weight, ())
+    if rgb_weight.device != dev:
+        raise ValueError(f"{what}: rgb_weight on {rgb_weight.device}, operands on {dev}")
     lib = cuda_build.load("photometric")
     scalars = (float(fx), float(fy), float(cx), float(cy))
-    tail = (ROBUST_KERNELS[robust_kernel], float(robust_k), float(rgb_weight),
+    tail = (ROBUST_KERNELS[robust_kernel], float(robust_k), rgb_weight.data_ptr(),
             partials.data_ptr(), MAX_BLOCKS, ticket.data_ptr(), out.data_ptr(),
             cuda_build.stream_ptr(dev))
     if isinstance(level, Sparse):

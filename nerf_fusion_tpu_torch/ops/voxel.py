@@ -11,6 +11,8 @@ int32 layout in its state and widens at the call).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 _BIG = torch.iinfo(torch.int64).max
@@ -36,14 +38,21 @@ def world_to_grid(xyz: torch.Tensor, bound_min: torch.Tensor, voxel_size: float)
     return xyz_norm, torch.ceil(xyz_norm).long() - 1
 
 
+@functools.lru_cache(maxsize=None)
+def _extent(n_xyz: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``n_xyz`` as a (3,) tensor on ``device``, copied there once: a copy
+    from the host cannot be captured in a CUDA graph (the tracker's)."""
+    return torch.as_tensor(n_xyz, dtype=dtype, device=device)
+
+
 def in_bounds(grid_id: torch.Tensor, n_xyz) -> torch.Tensor:
     """(..., 3) -> (...,) bool: inside the map's dense extent."""
-    n = torch.as_tensor(n_xyz, dtype=grid_id.dtype, device=grid_id.device)
+    n = _extent(tuple(n_xyz), grid_id.dtype, grid_id.device)
     return torch.all((grid_id >= 0) & (grid_id < n), dim=-1)
 
 
 def clamp_grid(grid_id: torch.Tensor, n_xyz) -> torch.Tensor:
-    n = torch.as_tensor(n_xyz, dtype=grid_id.dtype, device=grid_id.device)
+    n = _extent(tuple(n_xyz), grid_id.dtype, grid_id.device)
     return torch.minimum(torch.clamp_min(grid_id, 0), n - 1)
 
 

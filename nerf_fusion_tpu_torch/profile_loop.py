@@ -9,7 +9,10 @@ Runs the loop for ``--warm`` frames, times the next ``--frames`` frames
 the default 20-frame interval) with ``torch.profiler``.  Prints per frame
 the wall time of A, the device-busy time of B (the sum of the kernel
 durations; one stream, so kernels do not overlap) and the device's idle
-share 1 - busy / wall; then the 15 costliest kernels of B.  ``--exec``
+share 1 - busy / wall, the tracker's CUDA graph replays and host reads
+(of the GN done flag) per frame over B, and the CUDA runtime calls that
+launch work from the host per frame over B (kernels, copies, graphs);
+then the 15 costliest kernels of B.  ``--exec``
 overrides config keys as the entry point's does, e.g. the fast tracking
 path: ``--exec "tracking['rgb']['pixel_budget']=24576;mesh_reuse_latent_eps=0.003"``.
 """
@@ -27,6 +30,11 @@ from .main import build_sequence
 from .models.io import load_model
 from .system.pipeline import FusionPipeline
 from .utils import config as exp_util
+
+
+# CUDA runtime calls that put work on the device from the host
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync", "cudaGraphLaunch")
 
 
 def main(argv=None):
@@ -63,14 +71,23 @@ def main(argv=None):
     t0 = time.perf_counter()
     run(opts.warm, opts.warm + n)
     wall = (time.perf_counter() - t0) / n
+    tracker = pipe.tracker
+    replays, reads = tracker.graph_replays, tracker.host_reads
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(opts.warm + n, opts.warm + 2 * n)
+    replays, reads = tracker.graph_replays - replays, tracker.host_reads - reads
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    runtime = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in HOST_LAUNCHES:
+            runtime[e.name] = runtime.get(e.name, 0) + 1
     busy = sum(e.time_range.elapsed_us() for e in kernels) * 1e-6 / n
     print(f"{torch.cuda.get_device_name(0)}: frames {opts.warm}..{opts.warm + n - 1} "
           f"wall {1e3 * wall:.3f} ms/frame; frames {opts.warm + n}..{opts.warm + 2 * n - 1} "
           f"device busy {1e3 * busy:.3f} ms/frame, {len(kernels) / n:.1f} kernels/frame; "
-          f"device idle share {1 - busy / wall:.4f}")
+          f"device idle share {1 - busy / wall:.4f}; {replays / n:.2f} graph replays/frame, "
+          f"{reads / n:.2f} host reads/frame; launches from the host per frame "
+          f"{ {k: round(v / n, 2) for k, v in sorted(runtime.items())} }")
     by_name = {}
     for e in kernels:
         t, c = by_name.get(e.name, (0.0, 0))

@@ -19,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import mlp
 from ..ops import voxel as vox
 
 
@@ -175,17 +176,23 @@ def integrate_keyframe(state: MapState, cfg: MapConfig, encoder,
     return state._replace(latents=latents, obs_count=new_total), updated
 
 
-def get_sdf(state: MapState, cfg: MapConfig, decoder, xyz: torch.Tensor):
-    """Decode the SDF at world points: (sdf (N,), std (N,), valid (N,)).
+def get_sdf(state: MapState, cfg: MapConfig, decoder, xyz: torch.Tensor,
+            bound_min: torch.Tensor = None, with_grad: bool = False):
+    """Decode the SDF at world points: (sdf (N,), std (N,), valid (N,)), and
+    with ``with_grad`` also d sdf / d rel (N, 3), the kernel's forward-mode
+    gradient in the voxel-local coordinates rel = (xyz - bound_min) /
+    voxel_size - cell (the voxel lookup and the latent are constants).
 
     Voxel lookup, obs-count gating, decoder on voxel-local coordinates.
-    Invalid points still run through the decoder; callers mask.  When
-    ``xyz`` requires grad, sdf is differentiable w.r.t. it (the kernel's
-    forward-mode input gradient); the voxel lookup and the latent are not.
+    Invalid points still run through the decoder; callers mask.
+    ``bound_min``: ``cfg.bound_min`` as a (3,) tensor on ``xyz``'s device
+    (``SparseVoxelMap.bound_min``); built here if None, which is a
+    host-to-device copy and so cannot be captured in a CUDA graph.
     """
-    bound_min = torch.as_tensor(cfg.bound_min, dtype=torch.float32, device=xyz.device)
+    if bound_min is None:
+        bound_min = torch.as_tensor(cfg.bound_min, dtype=torch.float32, device=xyz.device)
     xyz_norm = (xyz - bound_min[None, :]) / cfg.voxel_size
-    grid = torch.ceil(xyz_norm.detach()).long() - 1
+    grid = torch.ceil(xyz_norm).long() - 1
     inb = vox.in_bounds(grid, cfg.n_xyz)
     gid = vox.linearize_id(vox.clamp_grid(grid, cfg.n_xyz), cfg.n_xyz)
     slot = state.indexer.long()[gid]
@@ -193,19 +200,22 @@ def get_sdf(state: MapState, cfg: MapConfig, decoder, xyz: torch.Tensor):
     valid = inb & (slot >= 0) & (state.obs_count[slot_c] > cfg.ignore_count_th)
     latent = state.latents[slot_c]
     rel = xyz_norm - grid.to(torch.float32) - 0.5
-    if rel.requires_grad:
-        sdf, std = decoder.sdf_with_grad(latent, rel)
-    else:
-        sdf, std = decoder(torch.cat([latent, rel], dim=1))
-        sdf, std = sdf[:, 0], std[:, 0]
-    return sdf, std, valid
+    x = torch.cat([latent, rel], dim=1)
+    if with_grad:
+        out, grad = mlp.decoder_forward_grad(x, decoder.packed, decoder.mats)
+        return out[:, 0], out[:, 1], valid, grad
+    sdf, std = decoder(x)
+    return sdf[:, 0], std[:, 0], valid
 
 
 class SparseVoxelMap:
     """Host-side owner of the map state and the model.
 
     ``updated_slots`` (host) and ``_updated_dev`` (device) accumulate the
-    slots touched since the last meshing; the mesher consumes them.
+    slots touched since the last meshing; the mesher consumes them.  The
+    state's tensors keep their storage for the map's life: integrating and
+    loading copy into them, so a CUDA graph captured on them (the tracker's)
+    reads the current map.  ``bound_min`` is ``cfg.bound_min`` on the device.
     """
 
     def __init__(self, model, args, latent_dim: int, device):
@@ -213,6 +223,8 @@ class SparseVoxelMap:
         self.device = torch.device(device)
         self.cfg = MapConfig.from_args(args, latent_dim)
         self.state = init_state(self.cfg, self.device)
+        self.bound_min = torch.as_tensor(self.cfg.bound_min, dtype=torch.float32,
+                                         device=self.device)
         self.updated_slots = np.zeros((self.cfg.latent_capacity,), bool)
         self._updated_dev = None
         logging.info("Map size Nx=%d Ny=%d Nz=%d (capacity %d voxels)",
@@ -233,9 +245,10 @@ class SparseVoxelMap:
                 pose_t = torch.as_tensor(pose.t, dtype=torch.float32, device=self.device)
             else:
                 pose_R, pose_t = pose
-        self.state, updated = integrate_keyframe(
+        state, updated = integrate_keyframe(
             self.state, self.cfg, self.model.encoder, points, normals, valid,
             pose_R, pose_t)
+        self._assign(state)
         self._updated_dev = (updated if self._updated_dev is None
                              else self._updated_dev | updated)
         return updated
@@ -249,5 +262,12 @@ class SparseVoxelMap:
         if not path.exists():
             path = path.with_suffix(".npz")
         with np.load(path) as d:
-            self.state = MapState(**{k: torch.tensor(d[k], device=self.device)
-                                     for k in MapState._fields})
+            self._assign(MapState(**{k: torch.from_numpy(d[k]) for k in MapState._fields}))
+
+    def _assign(self, state: MapState):
+        """Copy ``state`` into the map's tensors, field by field."""
+        for name, old, new in zip(MapState._fields, self.state, state):
+            if old.shape != new.shape or old.dtype != new.dtype:
+                raise ValueError(f"map state {name}: {tuple(new.shape)} {new.dtype} does "
+                                 f"not fit the map's {tuple(old.shape)} {old.dtype}")
+            old.copy_(new)

@@ -10,6 +10,13 @@ Mesh samples are decoded in f32 for every ``mesh_decode_precision``.  The
 JAX package's ``default`` is a one-pass bf16 decode, so the port's mesh is
 the more exact one there; the key is read and otherwise ignored.
 ``mesh_reuse_latent_eps`` > 0 turns on the mesher's latent-reuse gate.
+
+``frames_per_call`` K > 1 buffers the tracking-only frames and tracks a
+full buffer of K as one block (``SDFTracker.track_camera_block``); a
+cadence frame, a frame that needs a set pose and the end of the run flush
+the buffer first, a partial buffer frame by frame.  On the card a block is
+K frames of graph replays, each with its host reads of the GN done flag,
+so it is no faster than K single frames; the trajectory is the same.
 """
 
 from __future__ import annotations
@@ -35,8 +42,6 @@ class FusionPipeline:
         for name in ("run_async", "do_optimize", "mesh_fast"):
             if bool(getattr(args, name, False)):
                 raise NotImplementedError(f"{name}: true is not ported yet")
-        if int(getattr(args, "frames_per_call", 1)) != 1:
-            raise NotImplementedError("frames_per_call > 1 is not ported yet")
         model.to(self.device)
         self.map = SparseVoxelMap(model, args.mapping, args.model.code_length,
                                   self.device)
@@ -47,9 +52,42 @@ class FusionPipeline:
         budget = point_budget or int(getattr(args.mapping, "points_capacity", 16384))
         self.tracker = SDFTracker(self.map, args.tracking, point_budget=budget)
         self.timer = StageTimer()
+        self.frames_per_call = int(getattr(args, "frames_per_call", 1))
+        if self.frames_per_call < 1:
+            raise ValueError(f"frames_per_call must be >= 1, got {self.frames_per_call}")
+        self._frame_buf = []
+
+    def flush_frames(self):
+        """Track the buffered frames: a full buffer as one block, a partial
+        one frame by frame."""
+        buf, self._frame_buf = self._frame_buf, []
+        if not buf:
+            return
+        depth_cut = (self.args.depth_cut_min, self.args.depth_cut_max)
+        self.timer.start("track")
+        if len(buf) == self.frames_per_call:
+            def stack(arrs):
+                return torch.stack([torch.as_tensor(a, device=self.device) for a in arrs])
+
+            self.tracker.track_camera_block(stack([f.rgb for f in buf]),
+                                            stack([f.depth for f in buf]), buf[0].calib,
+                                            depth_cut=depth_cut)
+        else:
+            for f in buf:
+                self.tracker.track_camera(f.rgb, f.depth, f.calib, depth_cut=depth_cut)
+        self.timer.stop("track")
 
     def process_frame(self, frame, frame_id: int, use_gt_pose: bool = False):
-        """One frame through the pipeline; returns the device pose (R, t)."""
+        """One frame through the pipeline; returns the device pose (R, t), or
+        None for a frame buffered for a block (``frames_per_call`` > 1)."""
+        is_cadence = (frame_id % self.args.integrate_interval == 0
+                      or frame_id % self.args.meshing_interval == 0)
+        if self.frames_per_call > 1 and not (is_cadence or frame_id == 0 or use_gt_pose):
+            self._frame_buf.append(frame)
+            if len(self._frame_buf) == self.frames_per_call:
+                self.flush_frames()
+            return None
+        self.flush_frames()
         depth_cut = (self.args.depth_cut_min, self.args.depth_cut_max)
         set_pose = None
         if frame_id == 0:
@@ -87,13 +125,14 @@ class FusionPipeline:
             frame = next(sequence)
             logging.info("Frame ID = %d", i)
             self.process_frame(frame, i, use_gt_pose=use_gt_pose)
+        self.flush_frames()
         with self.timer.scope("final_mesh"):
             self.mesher.extract(self.args.resolution,
                                 max_std=getattr(self.args, "max_std", 0.15))
         poses = self.trajectory()
         results = {"n_frames": n, "timing": self.timer.summary()}
         if self.tracker.drop_fracs:
-            drops = torch.stack(self.tracker.drop_fracs).cpu().numpy()
+            drops = torch.cat([d.reshape(-1) for d in self.tracker.drop_fracs]).cpu().numpy()
             results["box_filter_drop_frac"] = {
                 "mean": float(drops.mean()), "max": float(drops.max())}
         if sequence.gt_trajectory is not None and not use_gt_pose:

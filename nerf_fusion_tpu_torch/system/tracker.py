@@ -1,19 +1,39 @@
-"""SDF + photometric camera tracker: Gauss-Newton on the device.
+"""SDF + photometric camera tracker: Gauss-Newton with its state on the device.
 
 Counterpart of the JAX package's ``system/tracker.py``.  The staged
 ``iter_config`` schedule, robust kernels, per-group energy-increase
 rejection with revert, the non-finite guards and the divergence state
-machine are the same; the normal equations are built and solved on the
-device.  The JAX version's early exit is a device ``while_loop``; here
-each iteration reads its energy to the host (one small transfer per
-iteration) and the loop stops there, with the same accept/revert rule and
-the same ``iters_used``.
+machine are the same, and so is where they run: on the device.
+
+A tracked frame is three functions over tensors that keep their storage
+from frame to frame (``_FrameStep``), the counterpart of JAX's
+``fused_frame_step``:
+
+  * prelude: ``preprocess_frame`` on the frame's input buffers, the reset
+    of the GN state (``ops.gn.GNState``) and, for the sparse photometric
+    term, the pixel selection of each used pyramid level;
+  * iteration(g): the normal equations of group g's terms at the current
+    delta pose and one ``ops.gn.gn_step`` (the body of JAX's per-group
+    ``while_loop``);
+  * epilogue: the pose composition, the divergence state machine (3
+    unstable frames raise the rgb weight to >= 500), the pose-log append at
+    a device counter and the packed rows of this frame's pyramid, which the
+    next frame's photometric term warps into.
+
+The host runs each group's loop: it runs iteration(g) and reads the
+one-byte ``done`` flag, the condition that JAX's ``while_loop`` evaluates
+on the device, so the evaluations, ``iters_used`` and poses are those of
+the JAX loop.  On the card the three functions are captured as CUDA graphs
+on the first tracked frame of a calibration (which runs eagerly on a side
+stream first, as the warm-up) and replayed on every later frame; on the CPU
+they run eagerly.  A capture or replay that fails raises.  A frame with
+``set_pose`` runs eagerly, as JAX's does.
 
 SDF residuals are ``r = sdf(T p) / std`` with std held constant; the
-position gradient comes from the decoder kernel's forward-mode input
-gradient through ``torch.autograd.grad``, chain-ruled to the twist of the
-last pose: J = [dS/dx R_last, (delta p) x (dS/dx R_last)].  The
-photometric term of a level is one ``ops.photometric.photometric_hg``
+position gradient is the decoder kernel's forward-mode d sdf / d rel,
+chained to world coordinates as (1 / std) grad / voxel_size and to the
+twist of the last pose: J = [dS/dx R_last, (delta p) x (dS/dx R_last)].
+The photometric term of a level is one ``ops.photometric.photometric_hg``
 call: one kernel launch on the card.
 """
 
@@ -27,7 +47,7 @@ import torch
 from ..utils import se3_torch as st
 from ..utils.config import dict_to_args
 from ..utils.se3 import Isometry
-from ..ops import imgproc, photometric
+from ..ops import gn, imgproc, launches, photometric
 from .frontend import preprocess_frame
 from .map import get_sdf
 
@@ -90,15 +110,16 @@ class TrackerConfig(NamedTuple):
 
 
 def _sdf_Hg(map_state, map_cfg, decoder, tcfg: TrackerConfig,
-            last_R, last_t, dR, dt, pts, mask):
+            last_R, last_t, dR, dt, pts, mask, bound_min=None):
     """SDF term: H (6, 6), g (6,), energy ()."""
     p_delta = st.transform_points(dR, dt, pts)              # delta @ p
-    p_world = st.transform_points(last_R, last_t, p_delta).detach().requires_grad_(True)
-    with torch.enable_grad():
-        sdf, std, valid = get_sdf(map_state, map_cfg, decoder, p_world)
-        r_g = sdf / std.detach()
-        (dsdf_dpos,) = torch.autograd.grad(r_g, p_world, torch.ones_like(r_g))
-    r = r_g.detach()
+    p_world = st.transform_points(last_R, last_t, p_delta)
+    sdf, std, valid, dsdf_drel = get_sdf(map_state, map_cfg, decoder, p_world,
+                                         bound_min, with_grad=True)
+    r = sdf / std
+    # d r / d p_world: 1 / std (std held constant), the kernel's d sdf / d rel
+    # and d rel / d p_world = 1 / voxel_size, in the order autograd chains them
+    dsdf_dpos = (torch.ones_like(std) / std)[:, None] * dsdf_drel / map_cfg.voxel_size
     m = (mask & valid).to(r.dtype)
     # The twist lives in the last-camera frame (delta <- exp(xi) o delta),
     # so the world gradient chain-rules through d x_world / d rho = R_last.
@@ -135,7 +156,8 @@ def _rgb_Hg(tcfg: TrackerConfig, level_data, fx, fy, cx, cy, dR, dt, rgb_weight,
     ``level_data``: (prev_rows (H*W, 2), cur intensity, cur depth, cur
     gradient) for the dense warp.  ``sparse``: optional (prev_rows, W, H,
     pix) from the once-per-frame pixel selection; replaces the dense warp.
-    ``K``: the level's (K, K^-1) from ``_intrinsics``, built here if None."""
+    ``K``: the level's (K, K^-1) from ``_intrinsics``, built here if None.
+    ``rgb_weight``: a float or a () tensor on the device."""
     Km, Kinv = _intrinsics(fx, fy, cx, cy, dR.device) if K is None else K
     krkinv = Km @ dR @ Kinv
     kt = Km @ dt
@@ -161,103 +183,244 @@ def _motion_Hg(tcfg: TrackerConfig, dR, dt):
             w * torch.sum(xi * xi))
 
 
-def track_gauss_newton(map_state, map_cfg, decoder, tcfg: TrackerConfig,
-                       prev_pyr, cur_pyr, pts, mask, last_R, last_t,
-                       init_dR, init_dt, fx, fy, cx, cy, rgb_weight):
-    """The staged GN schedule; returns (dR, dt, iters_used [G] host ints)."""
+def used_levels(tcfg: TrackerConfig) -> tuple:
+    """The pyramid levels the photometric terms of the schedule use."""
+    return tuple(sorted({int(t[1]) if len(t) > 1 else 0
+                         for _, terms in tcfg.iter_config for t in terms if t[0] == "rgb"}))
 
-    # The packed previous frame, the level's intrinsics (K, K^-1) and for
-    # the sparse photometric term the pixel selection, once per frame for
-    # each pyramid level a group uses.
-    used = {int(t[1]) if len(t) > 1 else 0
-            for _, terms in tcfg.iter_config for t in terms if t[0] == "rgb"}
-    prev_rows = {lev: imgproc.intensity_depth_rows(prev_pyr.intensity[lev],
-                                                   prev_pyr.depth[lev])
-                 for lev in sorted(used)}
-    scales = {lev: 0.5 ** lev if tcfg.scale_level_intrinsics else 1.0 for lev in used}
-    intr = {lev: _intrinsics(fx * s, fy * s, cx * s, cy * s, init_dR.device)
-            for lev, s in sorted(scales.items())}
-    sparse_levels = {}
+
+def _level_scale(tcfg: TrackerConfig, lev: int) -> float:
+    return 0.5 ** lev if tcfg.scale_level_intrinsics else 1.0
+
+
+def level_intrinsics(tcfg: TrackerConfig, fx, fy, cx, cy, device) -> dict:
+    """(K, K^-1) of each used level, built once per calibration."""
+    out = {}
+    for lev in used_levels(tcfg):
+        s = _level_scale(tcfg, lev)
+        out[lev] = _intrinsics(fx * s, fy * s, cx * s, cy * s, device)
+    return out
+
+
+class _Terms(NamedTuple):
+    """What the normal equations of one frame read besides the delta pose."""
+    map_state: tuple
+    map_cfg: tuple
+    decoder: object
+    bound_min: torch.Tensor
+    tcfg: TrackerConfig
+    last_R: torch.Tensor
+    last_t: torch.Tensor
+    pts: torch.Tensor
+    mask: torch.Tensor
+    cur_pyr: tuple
+    prev_rows: dict         # level -> (H*W, 2) rows of the previous frame
+    sparse: dict            # level -> (prev_rows, W, H, pix): the sparse term
+    intr: dict              # level -> (K, K^-1)
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    rgb_weight: object      # () tensor or float
+
+
+def _select(tcfg: TrackerConfig, cur_pyr, prev_rows) -> dict:
+    """The sparse photometric term's pixel selection, once per frame for
+    each used level (empty for the dense term)."""
+    sparse = {}
     if tcfg.rgb_pixel_budget > 0:
-        for lev in sorted(used):
+        for lev in used_levels(tcfg):
             pix = imgproc.select_photometric_pixels(
                 cur_pyr.intensity[lev], cur_pyr.depth[lev], cur_pyr.gradient[lev],
                 tcfg.rgb_pixel_budget, tcfg.min_grad_scale, stride=tcfg.rgb_stride)
             Hl, Wl = cur_pyr.intensity[lev].shape
-            sparse_levels[lev] = (prev_rows[lev], Wl, Hl, pix)
+            sparse[lev] = (prev_rows[lev], Wl, Hl, pix)
+    return sparse
 
-    def build_Hg(terms, dR, dt):
-        H = torch.zeros((6, 6), dtype=torch.float32, device=dR.device)
-        g = torch.zeros(6, dtype=torch.float32, device=dR.device)
-        energy = torch.zeros((), dtype=torch.float32, device=dR.device)
-        for term in terms:
-            if term[0] == "sdf":
-                Ht, gt, et = _sdf_Hg(map_state, map_cfg, decoder, tcfg,
-                                     last_R, last_t, dR, dt, pts, mask)
-            elif term[0] == "rgb":
-                lev = int(term[1]) if len(term) > 1 else 0
-                s = scales[lev]
-                level_data = (prev_rows[lev], cur_pyr.intensity[lev],
-                              cur_pyr.depth[lev], cur_pyr.gradient[lev])
-                Ht, gt, et = _rgb_Hg(tcfg, level_data, fx * s, fy * s,
-                                     cx * s, cy * s, dR, dt, rgb_weight,
-                                     sparse=sparse_levels.get(lev), K=intr[lev])
-            elif term[0] == "motion":
-                Ht, gt, et = _motion_Hg(tcfg, dR, dt)
-            else:
-                raise ValueError(f"unknown tracking term {term[0]!r}")
-            H, g, energy = H + Ht, g + gt, energy + et
-        return H, g, energy
 
-    eye6 = 1e-9 * torch.eye(6, dtype=torch.float32, device=init_dR.device)
-    dR, dt = init_dR, init_dt
-    iters_used = []
-    for n_iters, terms in tcfg.iter_config:
-        # Early exit as in the JAX while_loop: evaluate, reject a worse (or
-        # non-finite) energy by reverting to the best pose and stopping.
-        bR, bt = dR, dt
-        last_energy = float("inf")
-        used = 0
+def build_Hg(f: _Terms, terms, dR, dt):
+    """The normal equations (H, g, energy) of ``terms`` at the delta pose."""
+    H = torch.zeros((6, 6), dtype=torch.float32, device=dR.device)
+    g = torch.zeros(6, dtype=torch.float32, device=dR.device)
+    energy = torch.zeros((), dtype=torch.float32, device=dR.device)
+    for term in terms:
+        if term[0] == "sdf":
+            Ht, gt, et = _sdf_Hg(f.map_state, f.map_cfg, f.decoder, f.tcfg, f.last_R,
+                                 f.last_t, dR, dt, f.pts, f.mask, f.bound_min)
+        elif term[0] == "rgb":
+            lev = int(term[1]) if len(term) > 1 else 0
+            s = _level_scale(f.tcfg, lev)
+            level_data = (f.prev_rows[lev], f.cur_pyr.intensity[lev], f.cur_pyr.depth[lev],
+                          f.cur_pyr.gradient[lev])
+            Ht, gt, et = _rgb_Hg(f.tcfg, level_data, f.fx * s, f.fy * s, f.cx * s,
+                                 f.cy * s, dR, dt, f.rgb_weight, sparse=f.sparse.get(lev),
+                                 K=f.intr[lev])
+        elif term[0] == "motion":
+            Ht, gt, et = _motion_Hg(f.tcfg, dR, dt)
+        else:
+            raise ValueError(f"unknown tracking term {term[0]!r}")
+        H, g, energy = H + Ht, g + gt, energy + et
+    return H, g, energy
+
+
+def gn_iteration(f: _Terms, state: gn.GNState, group: int, step=gn.gn_step):
+    """One evaluation of group ``group``'s terms and its GN step (in place),
+    ``step`` with ``gn.gn_step``'s signature.
+    :return: the evaluation's (H, g, energy)."""
+    n_iters, terms = f.tcfg.iter_config[group]
+    H, g, energy = build_Hg(f, terms, state.dR, state.dt)
+    step(H, g, energy, state, group, n_iters)
+    return H, g, energy
+
+
+def run_groups(tcfg: TrackerConfig, state: gn.GNState, iteration):
+    """The host's side of the per-group loops (JAX's ``while_loop`` with
+    ``cond = !done & i <= n_iters``): ``iteration(g)`` runs one evaluation
+    and step of group g, then the host reads ``done`` unless the group's
+    count ended it.  :return: (evaluations, host reads)."""
+    evals = reads = 0
+    for group, (n_iters, _) in enumerate(tcfg.iter_config):
         i = 0
-        while i <= n_iters:
-            H, g, energy = build_Hg(terms, dR, dt)
-            e = float(energy)
-            worse = not (e <= last_energy) or not np.isfinite(e)
-            if worse:
-                dR, dt = bR, bt
-                break
-            bR, bt, last_energy, used = dR, dt, e, i
-            if i < n_iters:
-                xi, _ = torch.linalg.solve_ex(H + eye6, -g)
-                # a singular H gives a non-finite step: keep the pose
-                xi = torch.where(torch.isfinite(xi).all(), xi, torch.zeros_like(xi))
-                eR, et = st.se3_exp(xi)
-                dR, dt = st.compose(eR, et, dR, dt)
+        while True:
+            iteration(group)
+            evals += 1
             i += 1
-        iters_used.append(used)
-    return dR, dt, iters_used
+            if i > n_iters:
+                break
+            reads += 1
+            if bool(state.done):
+                break
+    return evals, reads
 
 
-def track_and_update(map_state, map_cfg, decoder, tcfg: TrackerConfig,
-                     prev_pyr, cur_pyr, pts, mask, last_R, last_t,
-                     fx, fy, cx, cy, rgb_weight: float, n_unstable: int):
-    """GN + pose composition + the divergence state machine (3 unstable
-    frames raise the rgb weight to >= 500).
-    :return: (pose_R, pose_t, rgb_weight', n_unstable', iters)."""
-    eye = torch.eye(3, dtype=torch.float32, device=last_R.device)
-    zero = torch.zeros(3, dtype=torch.float32, device=last_R.device)
-    dR, dt, iters = track_gauss_newton(
-        map_state, map_cfg, decoder, tcfg, prev_pyr, cur_pyr, pts, mask,
-        last_R, last_t, eye, zero, fx, fy, cx, cy, rgb_weight)
-    pose_R, pose_t = st.compose(last_R, last_t, dR, dt)
-    n_unstable = n_unstable + int(iters[-1] >= 10)
-    if n_unstable >= 3:
-        rgb_weight = max(rgb_weight, 500.0)
-    return pose_R, pose_t, rgb_weight, n_unstable, iters
+def divergence_update(iters, rgb_weight, n_unstable):
+    """The divergence state machine on the device: a frame whose last group
+    used >= 10 steps is unstable; from the third, the rgb weight is >= 500.
+    :return: (rgb_weight', n_unstable')."""
+    n_unstable = n_unstable + (iters[-1] >= 10).to(n_unstable.dtype)
+    rgb_weight = torch.where(n_unstable >= 3, torch.clamp_min(rgb_weight, 500.0), rgb_weight)
+    return rgb_weight, n_unstable
+
+
+def track_gauss_newton(map_state, map_cfg, decoder, tcfg: TrackerConfig,
+                       prev_pyr, cur_pyr, pts, mask, last_R, last_t,
+                       init_dR, init_dt, fx, fy, cx, cy, rgb_weight, bound_min=None,
+                       step=gn.gn_step):
+    """The staged GN schedule on one frame pair, run eagerly; ``step`` is
+    each evaluation's GN step (``gn.gn_step``'s signature).
+    :return: (dR, dt, iters_used (G,) int32), all on the device."""
+    dev = init_dR.device
+    prev_rows = {lev: imgproc.intensity_depth_rows(prev_pyr.intensity[lev],
+                                                   prev_pyr.depth[lev])
+                 for lev in used_levels(tcfg)}
+    f = _Terms(map_state, map_cfg, decoder, bound_min, tcfg, last_R, last_t, pts, mask,
+               cur_pyr, prev_rows, _select(tcfg, cur_pyr, prev_rows),
+               level_intrinsics(tcfg, fx, fy, cx, cy, dev), fx, fy, cx, cy, rgb_weight)
+    state = gn.new_state(len(tcfg.iter_config), dev)
+    start = torch.cat([init_dR.reshape(-1), init_dt]).to(torch.float32)
+    state.pose[0:12] = start
+    state.pose[12:24] = start
+    run_groups(tcfg, state, lambda group: gn_iteration(f, state, group, step))
+    return state.dR.clone(), state.dt.clone(), state.iters
+
+
+class _Graph:
+    """``fn()`` captured as a CUDA graph (``out``: its outputs, whose storage
+    each replay rewrites).  The capture launches nothing, so its launch
+    counts are taken back; ``replay`` adds them once per replay."""
+
+    def __init__(self, fn):
+        before = launches.snapshot()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = fn()
+        self.launches = launches.diff(launches.snapshot(), before)
+        launches.add(self.launches, -1)
+
+    def replay(self):
+        self.graph.replay()
+        launches.add(self.launches)
+
+
+class _FrameStep:
+    """One tracked frame of one calibration and frame format: the prelude,
+    the iteration of each group and the epilogue (see the module's
+    docstring), over the frame's input buffers ``rgb_in`` / ``depth_in``
+    and the tracker's persistent state."""
+
+    def __init__(self, tracker, rgb, depth, calib, depth_cut, key):
+        self.tracker, self.calib, self.depth_cut, self.key = tracker, calib, depth_cut, key
+        dev = tracker.device
+        self.rgb_in = torch.empty(tuple(rgb.shape), dtype=rgb.dtype, device=dev)
+        self.depth_in = torch.empty(tuple(depth.shape), dtype=depth.dtype, device=dev)
+        self.intr = level_intrinsics(tracker.tcfg, calib.fx, calib.fy, calib.cx, calib.cy,
+                                     dev)
+        self.graphs = None
+
+    def prelude(self):
+        t, c = self.tracker, self.calib
+        pre = t.preprocess(self.rgb_in, self.depth_in, c, self.depth_cut)
+        gn.reset(t.gn, t.gn_initial)
+        k = t.gn_point_budget
+        self.pre = pre
+        self.terms = _Terms(t.map.state, t.map.cfg, t.map.model.decoder, t.map.bound_min,
+                            t.tcfg, t.last_R, t.last_t, pre.points[:k], pre.mask[:k],
+                            pre.pyramid, t.prev_rows,
+                            _select(t.tcfg, pre.pyramid, t.prev_rows), self.intr,
+                            c.fx, c.fy, c.cx, c.cy, t.rgb_weight)
+        return pre
+
+    def iteration(self, group: int):
+        return gn_iteration(self.terms, self.tracker.gn, group)
+
+    def epilogue(self):
+        return self.tracker._tracked_epilogue(self.pre)
+
+    def _eager(self):
+        pre = self.prelude()
+        evals, reads = run_groups(self.tracker.tcfg, self.tracker.gn, self.iteration)
+        self.tracker.host_reads += reads
+        return self.epilogue(), pre
+
+    def run(self):
+        """Track the frame in the input buffers: (out (13,) = [pose_R (9),
+        pose_t (3), drop_frac], the frame's ``Preprocessed``); ``out`` is a
+        tensor of its own."""
+        t = self.tracker
+        if t.device.type != "cuda":
+            return self._eager()
+        if self.graphs is None:
+            # the warm-up on a side stream is this frame's work; the capture
+            # after it runs nothing
+            cur = torch.cuda.current_stream(t.device)
+            side = torch.cuda.Stream(t.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                out, pre = self._eager()
+            cur.wait_stream(side)
+            self.graphs = {
+                "prelude": _Graph(self.prelude),
+                "iteration": [_Graph(lambda g=g: self.iteration(g))
+                              for g in range(len(t.tcfg.iter_config))],
+                "epilogue": _Graph(self.epilogue)}
+            return out, pre
+        graphs = self.graphs
+        graphs["prelude"].replay()
+        evals, reads = run_groups(t.tcfg, t.gn, lambda g: graphs["iteration"][g].replay())
+        graphs["epilogue"].replay()
+        t.graph_replays += evals + 2
+        t.host_reads += reads
+        return graphs["epilogue"].out.clone(), self.pre
 
 
 class SDFTracker:
-    """Tracker front: preprocessing, GN and the device pose log."""
+    """Tracker front: preprocessing, the frame step and the device pose log.
+
+    The rgb weight, the unstable-frame count, the last pose, the previous
+    frame's packed rows and the GN state are device tensors that keep their
+    storage (the captured graphs read them).  ``graph_replays`` and
+    ``host_reads`` count the CUDA graph replays and the host's reads of
+    the done flag."""
 
     def __init__(self, vmap, args, point_budget: int = 16384,
                  gn_point_budget: int = None):
@@ -267,24 +430,34 @@ class SDFTracker:
             args = dict_to_args(args)
         self.tcfg = TrackerConfig.from_args(args)
         rgb = args.rgb if isinstance(args.rgb, dict) else vars(args.rgb)
-        self.rgb_weight = float(rgb["weight"])
-        self.n_unstable = 0
+        dev = self.device
+        self.rgb_weight = torch.tensor(float(rgb["weight"]), dtype=torch.float32, device=dev)
+        self.n_unstable = torch.zeros((), dtype=torch.int32, device=dev)
         self.point_budget = point_budget
         # GN uses a prefix of the hash-ordered box-filtered cloud.
         self.gn_point_budget = min(gn_point_budget or 8192, point_budget)
-        self.all_pd_pose = []          # device (R, t) per tracked frame
+        self.gn = gn.new_state(len(self.tcfg.iter_config), dev)
+        self.gn_initial = self.gn.pose.clone()
+        self.last_R = torch.eye(3, dtype=torch.float32, device=dev)
+        self.last_t = torch.zeros(3, dtype=torch.float32, device=dev)
+        self.prev_rows = {}            # level -> (H*W, 2) rows of the last frame
+        self._step = None
+        self.graph_replays = 0
+        self.host_reads = 0
+        self.all_pd_pose = []          # device (R, t), one per track call
         self.n_tracked = 0
-        # Preallocated device pose log appended in place; when full it
-        # spills to a host archive and restarts at row 0.
+        # Preallocated device pose log appended in place at a device
+        # counter; when full it spills to a host archive and restarts at 0.
         self.pose_log_capacity = 16384
         self._pose_log = torch.zeros((self.pose_log_capacity, 3, 4),
-                                     dtype=torch.float32, device=self.device)
-        self._pose_count = 0
+                                     dtype=torch.float32, device=dev)
+        self._pose_count = torch.zeros(1, dtype=torch.int64, device=dev)
         self._pose_archive = []
         self._n_archived = 0
-        self.prev_pyr = None
-        self.last_processed_pc = None  # device (points, normals, mask)
-        self.drop_fracs = []           # device scalars, fetched in one batch
+        # device (points, normals, mask) of the last frame; on the card the
+        # captured prelude's outputs, which the next tracked frame rewrites
+        self.last_processed_pc = None
+        self.drop_fracs = []           # device scalars or (K,) vectors
 
     def preprocess(self, rgb, depth, calib, depth_cut=(0.5, 5.0)):
         t = self.tcfg
@@ -305,42 +478,93 @@ class SDFTracker:
             return
         self._pose_archive.append(self._pose_log[:live].to("cpu", copy=True).numpy())
         self._n_archived += live
-        self._pose_count = 0
+        self._pose_count.zero_()
 
-    def _append_pose(self, R, t):
-        self._pose_log[self._pose_count, :, :3] = R
-        self._pose_log[self._pose_count, :, 3] = t
-        self._pose_count += 1
+    def _finish(self, pre, pose_R, pose_t):
+        """The end of every frame: the last pose, the pose-log append at the
+        device counter, the packed rows for the next frame's photometric
+        term.  :return: out (13,) = [pose_R, pose_t, drop_frac]."""
+        self.last_R.copy_(pose_R)
+        self.last_t.copy_(pose_t)
+        entry = torch.cat([pose_R, pose_t[:, None]], dim=1)
+        self._pose_log.index_copy_(0, self._pose_count, entry[None])
+        self._pose_count.add_(1)
+        for lev in used_levels(self.tcfg):
+            inten, depth = pre.pyramid.intensity[lev], pre.pyramid.depth[lev]
+            buf = self.prev_rows.get(lev)
+            if buf is None or buf.shape[0] != inten.numel():
+                buf = self.prev_rows[lev] = torch.empty(
+                    (inten.numel(), 2), dtype=torch.float32, device=self.device)
+            torch.stack([inten.reshape(-1), depth.reshape(-1)], dim=-1, out=buf)
+        return torch.cat([pose_R.reshape(-1), pose_t, pre.drop_frac.reshape(1)])
+
+    def _tracked_epilogue(self, pre):
+        pose_R, pose_t = st.compose(self.last_R, self.last_t, self.gn.dR, self.gn.dt)
+        rgb_weight, n_unstable = divergence_update(self.gn.iters, self.rgb_weight,
+                                                   self.n_unstable)
+        self.rgb_weight.copy_(rgb_weight)
+        self.n_unstable.copy_(n_unstable)
+        return self._finish(pre, pose_R, pose_t)
+
+    def _track(self, rgb, depth, calib, depth_cut):
+        """One tracked frame through the frame step of its calibration and
+        format (captured anew when either changes, or the map's storage)."""
+        rgb, depth = torch.as_tensor(rgb), torch.as_tensor(depth)
+        key = (tuple(rgb.shape), rgb.dtype, tuple(depth.shape), depth.dtype,
+               float(calib.fx), float(calib.fy), float(calib.cx), float(calib.cy),
+               float(getattr(calib, "dscale", 1.0)), tuple(depth_cut),
+               tuple(x.data_ptr() for x in self.map.state))
+        if self._step is None or self._step.key != key:
+            self._step = _FrameStep(self, rgb, depth, calib, depth_cut, key)
+        self._step.rgb_in.copy_(rgb)
+        self._step.depth_in.copy_(depth)
+        return self._step.run()
 
     def track_camera(self, rgb, depth, calib, set_pose: Isometry = None,
                      depth_cut=(0.5, 5.0)):
         """Returns the device pose (R (3, 3), t (3,))."""
         self._spill_pose_log(1)
-        pre = self.preprocess(rgb, depth, calib, depth_cut)
         if set_pose is not None:
-            pose = (torch.as_tensor(set_pose.q.rotation_matrix, dtype=torch.float32,
-                                    device=self.device),
-                    torch.as_tensor(set_pose.t, dtype=torch.float32, device=self.device))
+            pre = self.preprocess(rgb, depth, calib, depth_cut)
+            out = self._finish(
+                pre, torch.as_tensor(set_pose.q.rotation_matrix, dtype=torch.float32,
+                                     device=self.device),
+                torch.as_tensor(set_pose.t, dtype=torch.float32, device=self.device))
         else:
-            if not self.all_pd_pose:
+            if self.n_tracked == 0:
                 raise RuntimeError("first frame needs set_pose (first_iso)")
-            last_R, last_t = self.all_pd_pose[-1]
-            k = self.gn_point_budget
-            pose_R, pose_t, self.rgb_weight, self.n_unstable, _ = \
-                track_and_update(
-                    self.map.state, self.map.cfg, self.map.model.decoder,
-                    self.tcfg, self.prev_pyr, pre.pyramid,
-                    pre.points[:k], pre.mask[:k], last_R, last_t,
-                    calib.fx, calib.fy, calib.cx, calib.cy,
-                    self.rgb_weight, self.n_unstable)
-            pose = (pose_R, pose_t)
-        self._append_pose(*pose)
+            out, pre = self._track(rgb, depth, calib, depth_cut)
+        return self._record(out, pre)
+
+    def _record(self, out, pre):
+        """Book a frame's out (13,) or a block's (K, 13) and the last
+        frame's ``Preprocessed``: one ``drop_fracs`` and one ``all_pd_pose``
+        entry.  :return: the last pose."""
+        last = out.reshape(-1, 13)[-1]
+        pose = (last[:9].view(3, 3), last[9:12])
         self.last_processed_pc = (pre.points, pre.normals, pre.mask)
-        self.drop_fracs.append(pre.drop_frac)
-        self.prev_pyr = pre.pyramid
+        self.drop_fracs.append(out[..., 12])
         self.all_pd_pose.append(pose)
-        self.n_tracked += 1
+        self.n_tracked += out.reshape(-1, 13).shape[0]
         return pose
+
+    def track_camera_block(self, rgb_k, depth_k, calib, depth_cut=(0.5, 5.0)):
+        """K consecutive tracking-only frames sharing ``calib``, stacked
+        (K, H, W[, 3]): K runs of the frame step (on the card K sets of graph
+        replays) from the stack on the device.  All K poses land in the pose
+        log; ``drop_fracs`` and ``all_pd_pose`` get one entry for the block
+        (the (K,) drop fractions, the last pose).  :return: the last pose."""
+        if self.n_tracked == 0:
+            raise RuntimeError("block tracking needs a tracked or set first frame")
+        K = int(rgb_k.shape[0])
+        self._spill_pose_log(K)
+        rgb_k = torch.as_tensor(rgb_k, device=self.device)
+        depth_k = torch.as_tensor(depth_k, device=self.device)
+        outs = []
+        for k in range(K):
+            out, pre = self._track(rgb_k[k], depth_k[k], calib, depth_cut)
+            outs.append(out)
+        return self._record(torch.stack(outs), pre)
 
     def pose_history(self):
         """The pose chain as host Isometries (one transfer)."""

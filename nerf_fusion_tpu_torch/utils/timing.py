@@ -9,7 +9,10 @@ kernels are shorter than that cost it measures the host, not the card.
 Both run the call 3 times first.  ``device_trace`` lists the device events
 of such a trace one by one, with each kernel's grid and block, and
 ``per_call`` turns event durations into time and events per call, also for
-a trace that lost events.
+a trace that lost events.  ``l2_flush`` gives a ``flush`` for ``device_ms``:
+a device-to-device copy larger than the H100's 50 MB L2 before each call,
+so that the call finds its operands in device memory, not in the cache;
+the copy's own events are left out of the time.
 """
 
 from __future__ import annotations
@@ -43,18 +46,33 @@ def per_call(durations_us, reps: int):
     return (total / reps if n % reps == 0 else total / n * k) * 1e-3, k
 
 
-def device_ms(fn, reps: int = 20) -> float:
+FLUSH_EVENT = "Memcpy DtoD"
+
+
+def l2_flush(device, nbytes: int = 128 << 20):
+    """A call that evicts the L2: one copy of ``nbytes`` (two buffers of that
+    size stay allocated while the returned function lives)."""
+    src = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+    return lambda: dst.copy_(src)
+
+
+def device_ms(fn, reps: int = 20, flush=None) -> float:
     """The profiler now and then returns a trace without the device's events
     (once in a ``chip_smoke.py`` run on the H100, for ``torch.gather``); such
-    a trace is taken again, at most three times in all."""
+    a trace is taken again, at most three times in all.  ``flush``: called
+    before each call (``l2_flush``); its copies are not counted."""
     _warm(fn)
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
+                if flush is not None:
+                    flush()
                 fn()
             torch.cuda.synchronize()
         durations = [e.time_range.elapsed_us() for e in prof.events()
-                     if e.device_type == DeviceType.CUDA]
+                     if e.device_type == DeviceType.CUDA
+                     and not (flush is not None and e.name.startswith(FLUSH_EVENT))]
         if sum(durations) > 0:
             return per_call(durations, reps)[0]
     raise RuntimeError("device_ms: three traces held no device time")

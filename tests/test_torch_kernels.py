@@ -398,3 +398,105 @@ def test_loop_on_card_matches_cpu(cuda_device):
     for a, b in zip(tc, tg):
         assert np.linalg.norm(a.t - b.t) < 5e-3
     assert abs(len(mg) - len(mc)) <= 0.05 * len(mc) and len(mc) > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["step", "first", "singular", "nan_energy", "worse",
+                                  "last_step"])
+def test_gn_step_kernel_matches_plain(cuda_device, kind):
+    """The step on the card against its plain version (on the card too):
+    the new pose within 1e-5 of its largest entry (f32 LU against
+    cuSOLVER), the decisions and the reset of a finished group equal."""
+    import numpy as np
+
+    from nerf_fusion_tpu_torch.ops import gn
+
+    rng = np.random.default_rng(len(kind))
+    A = rng.normal(size=(6, 6))
+    H = torch.tensor((A @ A.T + 0.5 * np.eye(6)) * 40.0, dtype=torch.float32)
+    if kind == "singular":
+        H = torch.ones(6, 6)
+    g = torch.tensor(rng.normal(size=6) * 0.5, dtype=torch.float32)
+    energy = {"nan_energy": float("nan"), "worse": 2.0}.get(kind, 0.5)
+    state = gn.new_state(3, "cpu")
+    xi = torch.tensor(rng.normal(size=6) * 0.01, dtype=torch.float32)
+    R, t = st.se3_exp(xi)
+    state.pose[0:12] = torch.cat([R.reshape(-1), t])
+    state.pose[12:24] = torch.cat([R.reshape(-1), t])
+    if kind != "first":
+        state.pose[24] = 1.0
+        state.ints[0] = 4 if kind == "last_step" else 2
+    a = gn.GNState(*(x.to(cuda_device) for x in state))
+    b = gn.GNState(*(x.clone().to(cuda_device) for x in state))
+    args = (H.to(cuda_device), g.to(cuda_device), torch.tensor(energy, device=cuda_device))
+    n0 = gn.gn_step.launches
+    gn.gn_step(*args, a, 1, 4)
+    assert gn.gn_step.launches == n0 + 1
+    gn.gn_step_plain(*args, b, 1, 4)
+    scale = max(float(b.pose[:24].abs().max()), 1.0)
+    assert float((a.pose[:24] - b.pose[:24]).abs().max()) <= 1e-5 * scale
+    for x, y in zip((a.ints, a.done, a.iters, a.pose[24:]), (b.ints, b.done, b.iters,
+                                                             b.pose[24:])):
+        assert torch.equal(x, y)
+    assert bool(a.done) == (kind in ("nan_energy", "worse"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,k", [(480, 640, 24576), (240, 320, 19200), (61, 83, 1001)])
+def test_select_gather_kernel_matches_plain(cuda_device, h, w, k):
+    """Bitwise, NaN positions included; one launch counted."""
+    g = torch.Generator().manual_seed(h)
+    planes = [torch.rand(h, w, generator=g), 1.0 + torch.rand(h, w, generator=g),
+              torch.randn(h, w, generator=g), torch.randn(h, w, generator=g)]
+    planes[1][torch.rand(h, w, generator=g) < 0.1] = float("nan")
+    score = torch.where(torch.rand(h * w, generator=g) < 0.6, torch.rand(h * w, generator=g),
+                        torch.full((h * w,), -1.0))
+    vals, idx = torch.sort(score.to(cuda_device), descending=True, stable=True)
+    planes = tuple(p.to(cuda_device) for p in planes)
+    n0 = gather.select_gather.launches
+    out = gather.select_gather(vals, idx, k, w, planes)
+    assert gather.select_gather.launches == n0 + 1
+    ref = gather.select_gather_plain(vals, idx, k, w, planes)
+    for a, b in zip(out, ref):
+        assert a.is_contiguous() and a.shape == (k,)
+        assert _nan_equal(a.float(), b.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [0, 6144])
+def test_tracked_frames_replay_as_graphs(cuda_device, budget):
+    """A 320x240 run on the card: every tracked frame after the first is
+    graph replays, one evaluation through a captured graph gives H, g and
+    energy bitwise equal to the eager call, and the launch counters hold
+    what ran (a replay adds its graph's kernels)."""
+    from nerf_fusion_tpu_torch.data.synth import SyntheticSequence
+    from nerf_fusion_tpu_torch.ops import gn, launches
+    from nerf_fusion_tpu_torch.system.pipeline import FusionPipeline
+    from nerf_fusion_tpu_torch.tools import graph_check
+    from nerf_fusion_tpu_torch.utils.config import dict_to_args, parse_config_yaml
+
+    repo = CKPT.parent.parent.parent
+    args = parse_config_yaml(repo / "configs/fusion-synth.yaml")
+    args.mapping = dict_to_args(args.mapping)
+    args.tracking = dict_to_args(args.tracking)
+    args.tracking.rgb["pixel_budget"] = budget
+    model, args.model = load_model(repo / args.training_hypers, 300)
+    seq = SyntheticSequence(n_frames=8, width=320, height=240, device=cuda_device)
+    pipe = FusionPipeline(model, args, cuda_device)
+    for i in range(3):
+        pipe.process_frame(seq.render_frame(i), i)
+    tr = pipe.tracker
+    before, replays = launches.snapshot(), tr.graph_replays
+    for i in range(3, 8):
+        pipe.process_frame(seq.render_frame(i), i)
+    torch.cuda.synchronize()
+    ran = launches.diff(launches.snapshot(), before)
+    evals = tr.graph_replays - replays - 2 * 5
+    assert evals >= 15 and ran["gn_step"] == evals
+    assert ran["photometric_hg"] >= evals and ran["stencil_frontend"] == 5
+    assert (ran["select_gather"] > 0) == (budget > 0)
+    for group in range(3):
+        got, ref = graph_check.graph_vs_eager(tr, group)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert all(torch.isfinite(p).all() for p in tr.all_pd_pose[-1])
+    assert isinstance(tr.gn, gn.GNState)

@@ -160,7 +160,7 @@ def test_gauss_newton_matches_jax(setup):
         s["ts"], s["tcfg"], s["tm"].decoder, s["ttc"], _tpyr(s["p0"].pyramid),
         _tpyr(s["p1"].pyramid), _t(pts), _t(mask), _t(s["R0"]), _t(s["t0"]),
         torch.eye(3), torch.zeros(3), c.fx, c.fy, c.cx, c.cy, 500.0)
-    assert list(np.asarray(jiters)) == titers
+    assert list(np.asarray(jiters)) == titers.tolist()
     assert np.abs(tR.numpy() - np.asarray(jR)).max() < 1e-4
     assert np.abs(tt.numpy() - np.asarray(jt)).max() < 1e-4
 
@@ -347,6 +347,6 @@ def test_gauss_newton_sparse_matches_jax(setup):
         s["ts"], s["tcfg"], s["tm"].decoder, ttc, _tpyr(s["p0"].pyramid),
         _tpyr(s["p1"].pyramid), _t(pts), _t(mask), _t(s["R0"]), _t(s["t0"]),
         torch.eye(3), torch.zeros(3), c.fx, c.fy, c.cx, c.cy, 500.0)
-    assert list(np.asarray(jiters)) == titers
+    assert list(np.asarray(jiters)) == titers.tolist()
     assert np.abs(tR.numpy() - np.asarray(jR)).max() < 1e-4
     assert np.abs(tt.numpy() - np.asarray(jt)).max() < 1e-4
