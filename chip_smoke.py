@@ -19,7 +19,8 @@
    than its bound from device memory; ``select_gather`` is held bitwise at
    the fast path's level-0 selection.  The photometric kernel's valid count
    exactly, its H, g and energy to 1e-4 of each output's largest entry, and
-   two calls bitwise, at the dense level-0 shape and at the fast path's
+   two calls bitwise, at the dense level-0 shape (stride 2, and stride 1
+   as ``configs/fusion-lr-kt.yaml`` runs it) and at the fast path's
    24576-pixel selection.  ``gn_step`` on every step of a real frame's GN
    loops (dense and sparse), replayed on copies of the recorded state: the
    new pose within 1e-5 of its largest entry, the decisions equal.  A bound
@@ -33,7 +34,7 @@
    the kernel names, grids and the number of device events of each trace
    (``utils.timing.device_trace``): a trace can lose events, and
    ``utils.timing.per_call`` reads such a trace by its mean event.
-3. Runs five paths, each with the launch counters zeroed just before:
+3. Runs eight paths, each with the launch counters zeroed just before:
    (a) the dense fusion loop through its entry point
        (``nerf_fusion_tpu_torch.main configs/fusion-synth.yaml``, 640x480,
        all 100 frames), each tracked frame after the first as CUDA graph
@@ -45,17 +46,35 @@
        between the 20-frame cadences), held within 0.3 mm of (a)'s ATE and
        mesh |SDF|;
    (d) the gather probe (``nerf_fusion_tpu_torch.tools.gather_probe``);
-   (e) the frontend probe (``nerf_fusion_tpu_torch.tools.preprocess_probe``).
+   (e) the frontend probe (``nerf_fusion_tpu_torch.tools.preprocess_probe``);
+   (f) ``configs/fusion-lr-kt.yaml`` as it is (stride-1 dense photometric
+       term, full-resolution intrinsics at every level, 4 M triangles) on
+       the lr-kt workload: the synthetic room, 170 frames at 640x480,
+       rendered on the card and written in the ICL-NUIM layout by
+       ``tools/export_icl_format.export_lrkt`` (also timed: the reader's
+       decode per frame on this host), read back as uint8 / uint16 frames
+       through the entry point's ``PrefetchSequence``, uploaded ahead on a
+       side stream; its ``first_tq`` from the export;
+   (g) ``configs/fusion-lr-kt-fast.yaml`` on the same export;
+   (h) ``configs/fusion-scannet-scale.yaml``: the large scene, 400 frames,
+       map capacity 65536, 4 M triangles.
    Each fusion path runs in a profiler trace and prints its graph replays,
-   host reads and kernels (from the trace) per frame; its launch counters
-   must equal this repo's kernels in the trace, and each GN group's
-   evaluation through its captured graph must give H, g and energy bitwise
-   equal to the same functions run eagerly.  Fails unless every kernel
-   launched on some path, the photometric kernel, the fused frontend
-   stencil and ``gn_step`` on the fusion paths, ``select_gather`` on (b),
-   the row gather on no fusion path and at 1, 2 and 4 on (d), the two
-   standalone stencils on (e), and on (a)-(c) the box filter dropped
-   nothing and ATE and mesh |SDF| are below 20 mm.
+   host reads and kernels (from the trace) per frame, and its ATE, mesh
+   |SDF| (for the lr-kt export against the room's SDF), box-filter drop,
+   voxels allocated and triangles; its launch counters must equal this
+   repo's kernels in the trace, and each GN group's evaluation through its
+   captured graph must give H, g and energy bitwise equal to the same
+   functions run eagerly.  Two checks besides: ``preprocess_frame`` on a raw
+   lr-kt frame bitwise equal to the frame converted on the host, and the
+   first 41 frames of (g) with the frames uploaded ahead bitwise equal to
+   a run without a prefetcher (both under PyTorch's deterministic
+   algorithms).  Fails unless every kernel launched on some path, the
+   photometric kernel, the fused frontend stencil and ``gn_step`` on the
+   fusion paths, ``select_gather`` on (b), (g) and (h), the row gather on no
+   fusion path and at 1, 2 and 4 on (d), the two standalone stencils on
+   (e), and on every fusion path the box filter dropped nothing, the map
+   did not overflow and ATE and mesh |SDF| are below the path's gates
+   (``GATES``: 20 / 20 mm; lr-kt 20 / 28 mm, lr-kt fast 12 / 20 mm).
 4. Prints the ``{"kernels": [...]}`` line, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -65,7 +84,9 @@ available.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -75,6 +96,13 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 CONFIG = "configs/fusion-synth.yaml"
 FAST_EXEC = "tracking['rgb']['pixel_budget']=24576;mesh_reuse_latent_eps=0.003"
+LRKT_CONFIG = "configs/fusion-lr-kt.yaml"
+LRKT_FAST_CONFIG = "configs/fusion-lr-kt-fast.yaml"
+SCANNET_CONFIG = "configs/fusion-scannet-scale.yaml"
+# (ATE, mesh |SDF|) gates in metres per fusion path; lr-kt's are the JAX
+# bench's (bench.py: parity 20 / 28 mm, fast 12 / 20 mm)
+GATES = {"dense": (0.02, 0.02), "fast": (0.02, 0.02), "fpc19": (0.02, 0.02),
+         "lrkt": (0.02, 0.028), "lrkt_fast": (0.012, 0.02), "scannet_scale": (0.02, 0.02)}
 # NVIDIA H100 SXM data sheet peaks (dense, at the 700 W limit).
 PEAK_F32_FLOPS = 67e12      # CUDA cores
 PEAK_TF32_FLOPS = 495e12    # tensor cores
@@ -346,27 +374,31 @@ def photometric_phase(dev, seq):
     sel = photometric.Sparse(W, H, imgproc.select_photometric_pixels(
         *cur, 24576, kw["min_grad_scale"], stride=stride))
     cases = {}
-    for name, level in (("dense", cur), ("sparse", sel)):
+    # dense at the config's stride, the fast path's selection, and dense at
+    # stride 1, every pixel of level 0 (configs/fusion-lr-kt.yaml)
+    for name, level, st in (("dense", cur, stride), ("sparse", sel, stride),
+                            ("dense_stride1", cur, 1)):
+        kws = dict(kw, stride=st)
         args = (rows, level, krkinv, kt, c.fx, c.fy, c.cx, c.cy)
-        out = photometric.photometric_hg(*args, **kw)
-        again = photometric.photometric_hg(*args, **kw)
-        ref = photometric.photometric_hg_plain(*args, **kw)
+        out = photometric.photometric_hg(*args, **kws)
+        again = photometric.photometric_hg(*args, **kws)
+        ref = photometric.photometric_hg_plain(*args, **kws)
         torch.cuda.synchronize()
         n_pix = (level.pix[0].numel() if name == "sparse"
-                 else ((H + stride - 1) // stride) * ((W + stride - 1) // stride))
+                 else ((H + st - 1) // st) * ((W + st - 1) // st))
         n_valid = int(ref[3])
-        touched = _warp_touched(level, krkinv, kt, stride, kw["min_grad_scale"])
+        touched = _warp_touched(level, krkinv, kt, st, kw["min_grad_scale"])
         in_bytes = n_pix * (6 * 4 + 1) if name == "sparse" else n_pix * 4 * 4
         cases[name] = dict(
             shape=(f"({H * W}, 2) source, {n_pix} pixels"
-                   + (" (selection)" if name == "sparse" else f" (stride {stride})")),
+                   + (" (selection)" if name == "sparse" else f" (stride {st})")),
             count=float(out[3]), count_plain=float(ref[3]),
             err=max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                     for a, b in zip(out[:3], ref[:3])),
             repeat_equal=all(torch.equal(a, b) for a, b in zip(out, again)),
-            ms=device_ms(lambda: photometric.photometric_hg(*args, **kw), 100),
-            call_ms=call_ms(lambda: photometric.photometric_hg(*args, **kw), 100),
-            plain_ms=device_ms(lambda: photometric.photometric_hg_plain(*args, **kw), 100),
+            ms=device_ms(lambda: photometric.photometric_hg(*args, **kws), 100),
+            call_ms=call_ms(lambda: photometric.photometric_hg(*args, **kws), 100),
+            plain_ms=device_ms(lambda: photometric.photometric_hg_plain(*args, **kws), 100),
             bound=bound_ms(n_pix * PHOTO_OPS_PIXEL + n_valid * PHOTO_OPS_VALID,
                            in_bytes + touched * 8 + 12 * 4 + 44 * 4))
     for name, v in cases.items():
@@ -751,70 +783,93 @@ def read_launches() -> dict:
 
 
 def trace_counts(prof) -> tuple:
-    """(this repo's kernels by counter, all device kernels) in a trace."""
+    """(this repo's kernels by counter, all device kernels) in a trace.  Reads
+    the profiler's flat event list: ``prof.events()`` builds the CPU call tree
+    first, which did not end within 15 minutes for the 400-frame path."""
     from torch.autograd import DeviceType
 
     from nerf_fusion_tpu_torch.ops import launches
 
     mine, total = dict.fromkeys(launches.NAMES, 0), 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA or e.name.startswith(("Memcpy", "Memset")):
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() != DeviceType.CUDA or name.startswith(("Memcpy", "Memset")):
             continue
         total += 1
-        name = launches.counter_of(e.name)
-        if name is not None:
-            mine[name] += 1
+        counter = launches.counter_of(name)
+        if counter is not None:
+            mine[counter] += 1
     return mine, total
 
 
-def fusion_path(dev, label: str, exec_: str = None):
+def fusion_path(dev, label: str, exec_: str = None, config: str = CONFIG):
     """The fusion loop through its entry point, launch counters zeroed, in a
-    profiler trace: the counters must equal the trace's kernels."""
+    profiler trace: the counters must equal the trace's kernels.  Fails on
+    the path's ATE and mesh |SDF| gates (``GATES``), a box-filter drop, a
+    map overflow or an empty mesh."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from nerf_fusion_tpu_torch import main as entry
+    from nerf_fusion_tpu_torch.data.synth import scene_sdf
     from nerf_fusion_tpu_torch.ops import launches
     from nerf_fusion_tpu_torch.tools.graph_check import graph_vs_eager
+    from nerf_fusion_tpu_torch.utils.evaluate import mesh_abs_sdf_error
 
     out_dir = REPO / "output" / "chip_smoke" / label
-    argv = [str(REPO / CONFIG), "--device", str(dev), "--output", str(out_dir)]
+    argv = [str(REPO / config), "--device", str(dev), "--output", str(out_dir)]
     if exec_:
         argv += ["--exec", exec_]
     torch.cuda.synchronize()
     zero_launches()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the device's events only: with the host's operators recorded too, the
+    # scannet-scale path (its renderer launches about 8000 kernels a frame)
+    # took 284 s of wall time on an H100
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         pipe, res = entry.run(argv)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counted = launches.snapshot()
     launches_ = read_launches()
     traced, total = trace_counts(prof)
+    if "mesh_abs_sdf" not in res:
+        # a disk reader has no scene SDF: the lr-kt export is the synthetic
+        # room in its own world frame (read with the exported first_tq)
+        res["mesh_abs_sdf"] = mesh_abs_sdf_error(pipe.mesher.current_mesh(), scene_sdf,
+                                                 device=dev)
     tr = pipe.tracker
     n = res["n_frames"]
     tracked = tr.n_tracked - 1
     stages = {k: round(v["mean_ms"], 3) for k, v in res["timing"].items()}
     print(f"{label} path: {n} frames in {wall:.2f} s ({n / wall:.2f} fps incl. "
-          f"rendering, output and the profiler), stage mean ms {stages}", flush=True)
+          f"rendering or reading, output and the profiler), stage mean ms {stages}",
+          flush=True)
     print(f"{label} path: per tracked frame {tr.graph_replays / tracked:.2f} graph replays, "
           f"{tr.host_reads / tracked:.2f} host reads; {total / n:.1f} kernels per frame in "
           f"the trace ({torch.cuda.get_device_name(0)})", flush=True)
     print(f"{label} path: ATE {1e3 * res['ate_rmse']:.3f} mm, mesh |SDF| "
-          f"{1e3 * res.get('mesh_abs_sdf', float('nan')):.3f} mm, "
-          f"{res['n_triangles']} triangles, box-filter drop_frac "
-          f"{res['box_filter_drop_frac']}, launches {launches_}", flush=True)
+          f"{1e3 * res['mesh_abs_sdf']:.3f} mm, {res['n_triangles']} triangles, "
+          f"{res['map']['n_occupied']} voxels allocated of "
+          f"{pipe.map.cfg.latent_capacity}, map overflow {res['map']['overflow']}, "
+          f"box-filter drop_frac {res['box_filter_drop_frac']}, wall {wall:.2f} s, "
+          f"launches {launches_}", flush=True)
     if "mesh_reuse" in res:
         print(f"{label} path: latent-reuse gate skipped {res['mesh_reuse']['skipped']} "
               f"of {res['mesh_reuse']['updated']} updated voxels", flush=True)
+    ate_gate, mesh_gate = GATES[label]
     if traced != counted:
         fail(f"{label}: launch counters {counted} differ from the trace's kernels {traced}")
     if res["box_filter_drop_frac"]["max"] != 0.0:
         fail(f"{label}: box filter dropped points: {res['box_filter_drop_frac']}")
-    if not res["ate_rmse"] < 0.02:
-        fail(f"{label}: ATE {res['ate_rmse']} m >= 0.02")
-    if not res.get("mesh_abs_sdf", 1.0) < 0.02:
-        fail(f"{label}: mesh |SDF| {res.get('mesh_abs_sdf')} m >= 0.02")
+    try:
+        pipe.map.check_overflow()
+    except RuntimeError as e:
+        fail(f"{label}: {e} ({res['map']['n_occupied']} voxels allocated)")
+    if not res["ate_rmse"] < ate_gate:
+        fail(f"{label}: ATE {res['ate_rmse']} m >= {ate_gate}")
+    if not res["mesh_abs_sdf"] < mesh_gate:
+        fail(f"{label}: mesh |SDF| {res['mesh_abs_sdf']} m >= {mesh_gate}")
     if res["n_triangles"] <= 0:
         fail(f"{label}: empty mesh")
     if tr.graph_replays <= 0 or tr.host_reads > tr.graph_replays:
@@ -827,7 +882,116 @@ def fusion_path(dev, label: str, exec_: str = None):
                  f"one: {[float((a - b).abs().max()) for a, b in zip(got, ref)]}")
     print(f"{label} path: launch counters equal the trace's kernels; H, g, energy of each "
           f"group's captured evaluation bitwise equal to the eager call", flush=True)
+    res["wall_s"] = wall
     return launches_, res
+
+
+def lrkt_export(dev) -> str:
+    """The lr-kt workload (the synthetic room, 170 frames at 640x480, in the
+    ICL-NUIM layout), rendered on the card and written under ``output/``;
+    returns the ``--exec`` that points the lr-kt configs at it."""
+    import cv2
+
+    from nerf_fusion_tpu_torch.data.icl_nuim import ICLNUIMSequence
+    from nerf_fusion_tpu_torch.tools.export_icl_format import export_lrkt
+
+    out = REPO / "output" / "lrkt_data" / "lr-kt"
+    t0 = time.perf_counter()
+    first_tq = export_lrkt(out, device=dev)
+    print(f"lr-kt export: {len(list((out / 'rgb').glob('*.png')))} frames in {out} "
+          f"({time.perf_counter() - t0:.2f} s), first_tq {first_tq}", flush=True)
+    # the reader's decode on this host, one thread, every frame once
+    reader = ICLNUIMSequence(str(out), first_tq=first_tq, load_gt=True)
+    t0 = time.perf_counter()
+    for i in range(len(reader)):
+        reader.load_frame(i)
+    print(f"lr-kt decode: {1e3 * (time.perf_counter() - t0) / len(reader):.3f} ms a frame "
+          f"(640x480 rgb + depth PNG, OpenCV {cv2.__version__}, one thread)", flush=True)
+    raw_frame_check(dev, reader.load_frame(10))
+    return f"sequence_kwargs['path']='{out}';sequence_kwargs['first_tq']={first_tq}"
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms: on the card ``index_add_`` (the box
+    filter's and the map's segment sums) otherwise adds with atomics, in an
+    order that varies from call to call, so two runs agree to rounding only."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def raw_frame_check(dev, frame):
+    """``preprocess_frame`` on the card on a raw frame (uint8 rgb, uint16
+    depth counts) and on the same frame converted on the host with numpy's
+    float32 divisions: every output bitwise equal, NaN positions included
+    (under ``deterministic()``: the box filter's averages)."""
+    import numpy as np
+    import torch
+
+    from nerf_fusion_tpu_torch.system.frontend import preprocess_frame
+
+    c = frame.calib
+    rgb_f = frame.rgb.astype(np.float32) / np.float32(255.0)
+    depth_f = np.where(frame.depth == 0, np.float32(np.nan),
+                       frame.depth.astype(np.float32) / np.float32(c.dscale))
+    with deterministic():
+        outs = [preprocess_frame(torch.from_numpy(np.ascontiguousarray(rgb)).to(dev),
+                                 torch.from_numpy(np.ascontiguousarray(depth)).to(dev),
+                                 c.fx, c.fy, c.cx, c.cy, 0.5, 5.0, 40960,
+                                 depth_scale=c.dscale)
+                for rgb, depth in ((frame.rgb, frame.depth), (rgb_f, depth_f))]
+        torch.cuda.synchronize()
+
+    def flat(p):
+        return [*p.pyramid.intensity, *p.pyramid.depth, *p.pyramid.gradient, p.points,
+                p.normals, p.colors, p.mask, p.drop_frac]
+
+    same = [torch.equal(torch.nan_to_num(a, nan=-7.0), torch.nan_to_num(b, nan=-7.0))
+            and torch.equal(a.isnan(), b.isnan()) if a.is_floating_point() else torch.equal(a, b)
+            for a, b in zip(flat(outs[0]), flat(outs[1]))]
+    print(f"raw frame (uint8 / uint16) against the host-converted float frame: "
+          f"{sum(same)} of {len(same)} outputs of preprocess_frame bitwise equal, "
+          f"{int(outs[0].mask.sum())} points", flush=True)
+    if not all(same):
+        fail(f"the raw-frame frontend differs from the float path: {same}")
+
+
+def prefetch_check(dev, lrkt_exec: str, n_frames: int = 41):
+    """``configs/fusion-lr-kt-fast.yaml`` on its first ``n_frames`` frames with
+    the frames uploaded ahead on a side stream (``prefetch_upload``, twice)
+    and read without a prefetcher: the trajectories must be bitwise equal.
+    All runs under ``deterministic()``."""
+    import numpy as np
+    import torch
+
+    from nerf_fusion_tpu_torch import main as entry
+
+    trajs = {}
+    with deterministic():
+        for label, extra in (("upload", "prefetch_upload=True"), ("direct", "prefetch=False"),
+                             ("upload_again", "prefetch_upload=True")):
+            argv = [str(REPO / LRKT_FAST_CONFIG), "--device", str(dev), "--max_frames",
+                    str(n_frames), "--output", str(REPO / "output" / "chip_smoke" / label),
+                    "--exec", f"{lrkt_exec};{extra}"]
+            t0 = time.perf_counter()
+            pipe, res = entry.run(argv)
+            torch.cuda.synchronize()
+            trajs[label] = np.stack([p.matrix for p in pipe.trajectory()])
+            print(f"prefetch check, {label}: {n_frames} frames in "
+                  f"{time.perf_counter() - t0:.2f} s, ATE {1e3 * res['ate_rmse']:.3f} mm",
+                  flush=True)
+    for label in ("direct", "upload_again"):
+        diff = float(np.abs(trajs[label] - trajs["upload"]).max())
+        print(f"prefetch check: upload vs {label}: max |pose difference| {diff:.3e}",
+              flush=True)
+        if not np.array_equal(trajs[label], trajs["upload"]):
+            fail(f"prefetch upload: the trajectory differs from the {label} run's by "
+                 f"up to {diff}")
 
 
 def probe_path(label: str, probe):
@@ -845,11 +1009,12 @@ def probe_path(label: str, probe):
 
 
 def check_launches(paths: dict):
+    fusion = ("decoder_forward", "decoder_forward_grad", "encoder_forward",
+              "stencil_frontend", "photometric_hg", "gn_step")
     required = {
-        "dense": ("decoder_forward", "decoder_forward_grad", "encoder_forward",
-                  "stencil_frontend", "photometric_hg", "gn_step"),
-        "fast": ("decoder_forward", "decoder_forward_grad", "encoder_forward",
-                 "stencil_frontend", "photometric_hg", "gn_step", "select_gather"),
+        "dense": fusion, "lrkt": fusion,
+        "fast": fusion + ("select_gather",), "lrkt_fast": fusion + ("select_gather",),
+        "scannet_scale": fusion + ("select_gather",),
         "probe": ("row_gather", "row_gather_c1", "lane_gather"),
         "frontend_probe": ("stencil_count", "stencil_normals", "stencil_frontend"),
     }
@@ -859,7 +1024,7 @@ def check_launches(paths: dict):
                 fail(f"kernel {name} was not launched on the {label} path")
     # the warps gather inside the photometric kernel and the selection in
     # select_gather: the row gather runs on the probe only
-    for label in ("dense", "fast", "fpc19"):
+    for label in ("dense", "fast", "fpc19", "lrkt", "lrkt_fast", "scannet_scale"):
         if any(paths[label]["row_gather_by_width"].values()):
             fail(f"row_gather ran on the {label} path: {paths[label]['row_gather_by_width']}")
     for c in (1, 2, 4):
@@ -880,6 +1045,9 @@ def main() -> int:
     from nerf_fusion_tpu_torch.ops import cuda_build
     from nerf_fusion_tpu_torch.tools import gather_probe, preprocess_probe
 
+    # cuBLAS's fixed workspace, which PyTorch's deterministic algorithms
+    # (the prefetch check) require; set before the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -904,6 +1072,14 @@ def main() -> int:
                  f"run's {dense[key]} m")
     paths["probe"], _ = probe_path("gather", gather_probe)
     paths["frontend_probe"], _ = probe_path("frontend", preprocess_probe)
+    # the three configs of the data layer, each as its file gives it; the
+    # lr-kt configs read the exported room (uint8 / uint16 frames, uploaded
+    # ahead on a side stream), scannet-scale renders the large scene
+    lrkt_exec = lrkt_export(dev)
+    paths["lrkt"], _ = fusion_path(dev, "lrkt", lrkt_exec, LRKT_CONFIG)
+    paths["lrkt_fast"], _ = fusion_path(dev, "lrkt_fast", lrkt_exec, LRKT_FAST_CONFIG)
+    paths["scannet_scale"], _ = fusion_path(dev, "scannet_scale", None, SCANNET_CONFIG)
+    prefetch_check(dev, lrkt_exec)
     check_launches(paths)
     kernels = []
     for r in rows:

@@ -1,10 +1,12 @@
-"""Synthetic RGB-D sequence: a sphere-traced analytic SDF room.
+"""Synthetic RGB-D sequence: a sphere-traced analytic SDF scene.
 
-Counterpart of the JAX package's ``data/synth.py`` (the "room" scene): a
-procedurally textured room (floor, two walls, a sphere, a box) rendered
-along a smooth orbit with known poses, so the whole loop (tracking,
-fusion, meshing, ATE and mesh |SDF| evaluation) runs hermetically.  Frames
-are rendered on the sequence's device with a 96-step sphere trace.
+Counterpart of the JAX package's ``data/synth.py``: a procedurally
+textured scene rendered along a known trajectory, so the whole loop
+(tracking, fusion, meshing, ATE and mesh |SDF| evaluation) runs
+hermetically.  Two scenes: "room" (floor, two walls, a sphere, a box; a
+smooth orbit) and "large" (an 8x8 m two-room apartment; a figure-eight
+walk through the doorway).  Frames are rendered on the sequence's device
+with a 96-step sphere trace.
 """
 
 from __future__ import annotations
@@ -34,6 +36,44 @@ def scene_sdf(p: torch.Tensor) -> torch.Tensor:
                                        torch.minimum(wall_x, sph)), box)
 
 
+def _box_sdf(p: torch.Tensor, center, half) -> torch.Tensor:
+    q = torch.abs(p - p.new_tensor(center)) - p.new_tensor(half)
+    return torch.linalg.vector_norm(torch.clamp_min(q, 0.0), dim=-1) \
+        + torch.clamp_max(torch.amax(q, dim=-1), 0.0)
+
+
+def scene_sdf_large(p: torch.Tensor) -> torch.Tensor:
+    """ScanNet-scale analytic scene: an 8x8 m two-room apartment (y up).
+
+    Outer walls on all four sides, a dividing wall at z = 0 with a 1.6 m
+    doorway, and furniture-scale objects in both rooms."""
+    floor = p[..., 1]
+    walls = torch.minimum(
+        torch.minimum(p[..., 0] + 4.0, 4.0 - p[..., 0]),
+        torch.minimum(p[..., 2] + 4.0, 4.0 - p[..., 2]))
+    div_a = _box_sdf(p, [-2.4, 1.3, 0.0], [1.6, 1.3, 0.08])
+    div_b = _box_sdf(p, [2.4, 1.3, 0.0], [1.6, 1.3, 0.08])
+    # room A (z < 0)
+    sph_a = torch.linalg.vector_norm(p - p.new_tensor([-2.0, 0.6, -2.0]), dim=-1) - 0.6
+    box_a = _box_sdf(p, [2.0, 0.4, -2.4], [0.45, 0.4, 0.35])
+    tab_a = _box_sdf(p, [0.2, 0.35, -3.2], [0.8, 0.35, 0.4])
+    # room B (z > 0)
+    sph_b = torch.linalg.vector_norm(p - p.new_tensor([2.2, 0.5, 2.4]), dim=-1) - 0.5
+    box_b = _box_sdf(p, [-2.2, 0.5, 2.2], [0.5, 0.5, 0.5])
+    dxz = torch.stack([
+        torch.linalg.vector_norm(p[..., ::2] - p.new_tensor([0.4, 3.1]), dim=-1) - 0.45,
+        torch.abs(p[..., 1] - 0.55) - 0.55], -1)
+    cyl_b = torch.clamp_max(torch.amax(dxz, dim=-1), 0.0) \
+        + torch.linalg.vector_norm(torch.clamp_min(dxz, 0.0), dim=-1)
+    out = floor
+    for s in (walls, div_a, div_b, sph_a, box_a, tab_a, sph_b, box_b, cyl_b):
+        out = torch.minimum(out, s)
+    return out
+
+
+SCENES = {"room": scene_sdf, "large": scene_sdf_large}
+
+
 def _albedo(p: torch.Tensor) -> torch.Tensor:
     """Procedural texture giving the photometric term real gradients."""
     checker = torch.remainder(torch.floor(p[..., 0] * 3) + torch.floor(p[..., 2] * 3), 2)
@@ -43,8 +83,9 @@ def _albedo(p: torch.Tensor) -> torch.Tensor:
     return torch.clamp(base, 0.05, 1.0)
 
 
-def _render(R, t, fx, fy, cx, cy, H: int, W: int):
-    """Sphere-trace one frame. R, t: camera-to-world. Returns (rgb, depth)."""
+def _render(R, t, fx, fy, cx, cy, H: int, W: int, scene_sdf=scene_sdf):
+    """Sphere-trace one frame of the scene whose SDF is ``scene_sdf``.
+    R, t: camera-to-world.  Returns (rgb, depth)."""
     dev = R.device
     u = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
     v = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
@@ -82,34 +123,51 @@ def _render(R, t, fx, fy, cx, cy, H: int, W: int):
 
 
 class SyntheticSequence(RGBDSequence):
-    """Sphere-traced RGB-D frames along a smooth orbit trajectory."""
+    """Sphere-traced RGB-D frames along a known trajectory: an orbit of the
+    room, or a figure-eight through the large scene.  ``seed`` is accepted
+    for the JAX package's signature; both scenes are deterministic."""
 
     def __init__(self, n_frames: int = 200, width: int = 640, height: int = 480,
                  radius: float = 1.6, angular_span: float = 1.2,
-                 load_gt: bool = True, start_frame: int = 0,
+                 seed: int = 0, load_gt: bool = True, start_frame: int = 0,
                  end_frame: int = -1, scene: str = "room", device="cpu"):
         super().__init__()
-        if scene != "room":
-            raise NotImplementedError(f"synthetic scene {scene!r} is not ported yet")
+        if scene not in SCENES:
+            raise ValueError(f"unknown synthetic scene {scene!r}; one of {sorted(SCENES)}")
         if end_frame == -1:
             end_frame = n_frames
         self.W, self.H = width, height
+        self.scene = scene
         self.device = torch.device(device)
         f = 481.2 * width / 640.0
         self.calib = FrameIntrinsic(f, f, width / 2.0 - 0.5, height / 2.0 - 0.5, 5000.0)
-        center = np.array([0.4, 0.5, -0.3])
         poses = []
-        for i in range(n_frames):
-            a = -0.5 + angular_span * i / max(n_frames - 1, 1)
-            cam = center + np.array([radius * np.sin(a) + 0.7,
-                                     0.75 + 0.12 * np.sin(2.2 * a),
-                                     radius * np.cos(a) + 0.7])
-            poses.append(Isometry.look_at(cam, center, up=np.array([0.0, -1.0, 0.0])))
+        if scene == "large":
+            # a figure-eight (Gerono lemniscate) whose crossing sits in the
+            # z = 0 doorway, one lobe per room; the camera looks ahead along
+            # the path with a slight downward pitch
+            def pos(a):
+                return np.array([0.9 * np.sin(2 * a), 1.25 + 0.06 * np.sin(3.1 * a),
+                                 2.45 * np.sin(a)])
+
+            for i in range(n_frames):
+                th = 2.0 * np.pi * i / max(n_frames - 1, 1)
+                target = pos(th + 0.55)
+                target[1] -= 0.45
+                poses.append(Isometry.look_at(pos(th), target, up=np.array([0.0, -1.0, 0.0])))
+        else:
+            center = np.array([0.4, 0.5, -0.3])
+            for i in range(n_frames):
+                a = -0.5 + angular_span * i / max(n_frames - 1, 1)
+                cam = center + np.array([radius * np.sin(a) + 0.7,
+                                         0.75 + 0.12 * np.sin(2.2 * a),
+                                         radius * np.cos(a) + 0.7])
+                poses.append(Isometry.look_at(cam, center, up=np.array([0.0, -1.0, 0.0])))
         self.gt_trajectory = poses[start_frame:end_frame] if load_gt else None
         self._poses = poses[start_frame:end_frame]
         self.first_iso = self._poses[0]
-        # the analytic scene SDF: an exact mesh-quality oracle
-        self.scene_sdf = scene_sdf
+        # the analytic SDF of the rendered scene: an exact mesh-quality oracle
+        self.scene_sdf = SCENES[scene]
 
     def __len__(self):
         return len(self._poses)
@@ -119,7 +177,7 @@ class SyntheticSequence(RGBDSequence):
         R = torch.as_tensor(iso.q.rotation_matrix, dtype=torch.float32, device=self.device)
         t = torch.as_tensor(iso.t, dtype=torch.float32, device=self.device)
         c = self.calib
-        rgb, depth = _render(R, t, c.fx, c.fy, c.cx, c.cy, self.H, self.W)
+        rgb, depth = _render(R, t, c.fx, c.fy, c.cx, c.cy, self.H, self.W, self.scene_sdf)
         frame = FrameData()
         frame.rgb = rgb
         frame.depth = depth

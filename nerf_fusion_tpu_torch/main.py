@@ -2,18 +2,24 @@
 
     python -m nerf_fusion_tpu_torch.main configs/fusion-synth.yaml \
         [--device cuda|cpu] [--max_frames N] [--output DIR] [--gt_pose 1]
-        [--load_map map.npz]
+        [--load_map map.npz] [--profile DIR]
 
 Reads the same YAML and ``hyper.json`` as the JAX entry point and writes
 the same ``trajectory.txt``, ``mesh.ply``, ``map.npz`` and ``stats.json``
 into ``--output``.  Runs on the GPU unless ``--device cpu`` is given.
+A disk reader (a sequence with ``load_frame``) is wrapped in a
+``PrefetchSequence`` unless the config says ``prefetch: false``; on the GPU
+its frames go up on a side stream unless ``prefetch_upload: false``.
+``--profile DIR`` writes a ``torch.profiler`` trace of the run there.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import inspect
 import logging
+from pathlib import Path
 
 import torch
 
@@ -32,11 +38,23 @@ def build_sequence(args, device):
             f"sequence type {args.sequence_type!r} is not ported yet") from e
     cls = getattr(module, seq_class)
     kwargs = dict(args.sequence_kwargs)
+    params = inspect.signature(cls).parameters
     # first_tq stays in the config for the readers that take it (ICL-NUIM's
     # puts its ground truth in the frame of first_iso with it)
-    if "first_tq" not in inspect.signature(cls).parameters:
+    if "first_tq" not in params:
         kwargs.pop("first_tq", None)
-    return cls(load_gt=True, device=device, **kwargs)
+    if "device" in params:          # a renderer; the disk readers return host frames
+        kwargs["device"] = device
+    seq = cls(load_gt=True, **kwargs)
+    # disk readers decode ahead on a thread pool (the loop would otherwise
+    # wait on each PNG decode); on the GPU the frames also go up ahead
+    if getattr(args, "prefetch", True) and hasattr(seq, "load_frame"):
+        from .data.prefetch import PrefetchSequence
+
+        device = torch.device(device)
+        upload = device.type == "cuda" and bool(getattr(args, "prefetch_upload", True))
+        seq = PrefetchSequence(seq, depth=4, workers=2, upload=upload, device=device)
+    return seq
 
 
 def set_first_iso(args):
@@ -72,6 +90,8 @@ def run(argv=None):
     parser.add_argument("--max_frames", type=int, default=None)
     parser.add_argument("--load_map", type=str, default=None,
                         help="resume fusion from a saved map.npz")
+    parser.add_argument("--profile", type=str, default=None,
+                        help="write a torch.profiler trace of the run to this directory")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     # f32 products everywhere: the tracker's Jacobians need the digits
@@ -90,8 +110,24 @@ def run(argv=None):
     if args.load_map:
         pipeline.map.load(args.load_map)
         pipeline.map.updated_slots[:] = True    # re-mesh everything once
-    results = pipeline.run(sequence, use_gt_pose=bool(args.gt_pose),
-                           max_frames=args.max_frames, output_dir=args.output)
+    prof = contextlib.nullcontext()
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        prof = profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device.type == "cuda" else []))
+    try:
+        with prof:
+            results = pipeline.run(sequence, use_gt_pose=bool(args.gt_pose),
+                                   max_frames=args.max_frames, output_dir=args.output)
+    finally:
+        if hasattr(sequence, "close"):
+            sequence.close()
+    if args.profile:
+        trace = Path(args.profile) / "trace.json"
+        trace.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(trace))
+        logging.info("profiler trace written to %s", trace)
     logging.info("results: %s", results)
     return pipeline, results
 

@@ -6,8 +6,10 @@
 Runs the loop for ``--warm`` frames, times the next ``--frames`` frames
 (window A) on the host clock, then traces the ``--frames`` after those
 (window B, the same mix of frames: one integrate + mesh cadence each at
-the default 20-frame interval) with ``torch.profiler``.  Prints per frame
-the wall time of A, the device-busy time of B (the sum of the kernel
+the default 20-frame interval) with ``torch.profiler``.  A synthetic
+sequence is rendered before the first window; a disk reader is read in the
+windows through the entry point's ``PrefetchSequence``, as a run reads it.
+Prints per frame the wall time of A, the device-busy time of B (the sum of the kernel
 durations; one stream, so kernels do not overlap) and the device's idle
 share 1 - busy / wall, the tracker's CUDA graph replays and host reads
 (of the GN done flag) per frame over B, and the CUDA runtime calls that
@@ -26,7 +28,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from .main import build_sequence
+from .main import build_sequence, set_first_iso
 from .models.io import load_model
 from .system.pipeline import FusionPipeline
 from .utils import config as exp_util
@@ -56,14 +58,18 @@ def main(argv=None):
     model, args.model = load_model(args.training_hypers, args.using_epoch)
     args.mapping = exp_util.dict_to_args(args.mapping)
     args.tracking = exp_util.dict_to_args(args.tracking)
+    set_first_iso(args)
     seq = build_sequence(args, dev)
     n = opts.frames
-    frames = [seq.render_frame(i) for i in range(opts.warm + 2 * n)]
+    if hasattr(seq, "render_frame"):
+        frames = iter([seq.render_frame(i) for i in range(opts.warm + 2 * n)])
+    else:
+        frames = seq
     pipe = FusionPipeline(model, args, dev)
 
     def run(lo, hi):
         for i in range(lo, hi):
-            pipe.process_frame(frames[i], i)
+            pipe.process_frame(next(frames), i)
         pipe.mesher.current_mesh()
         torch.cuda.synchronize()
 

@@ -33,6 +33,23 @@ class Preprocessed(NamedTuple):
     drop_frac: torch.Tensor  # () fraction of points lost to capacity truncation
 
 
+def frame_to_float(rgb, depth, depth_scale=1.0):
+    """A raw frame (uint8 rgb, uint16 depth counts at ``depth_scale`` per
+    metre, 0 invalid) as float32 rgb in [0, 1] and depth in metres (NaN
+    invalid); float frames pass through.  Each quotient is taken in float64
+    and rounded once, which equals the float32 division on every device
+    (PyTorch's CUDA kernel multiplies by the rounded reciprocal of a scalar
+    divisor, which differs in the last bit); uint16 is widened first, it has
+    few CUDA kernels."""
+    if rgb.dtype == torch.uint8:
+        rgb = (rgb.to(torch.float64) / 255.0).to(torch.float32)
+    if depth.dtype != torch.float32:
+        counts = depth.to(torch.int32)
+        d = (counts.to(torch.float64) / depth_scale).to(torch.float32)
+        depth = torch.where(counts == 0, torch.full_like(d, float("nan")), d)
+    return rgb, depth
+
+
 def preprocess_frame(rgb, depth, fx, fy, cx, cy,
                      depth_cut_min, depth_cut_max, point_budget: int,
                      subsample: float = 0.5, depth_scale=1.0,
@@ -42,11 +59,7 @@ def preprocess_frame(rgb, depth, fx, fy, cx, cy,
     """rgb (H, W, 3) float in [0, 1] or uint8; depth (H, W) float metres
     (NaN invalid) or uint16 counts at ``depth_scale`` per metre (0 invalid).
     Both on the device the work should run on."""
-    if rgb.dtype == torch.uint8:
-        rgb = rgb.to(torch.float32) / 255.0
-    if depth.dtype != torch.float32:
-        d = depth.to(torch.float32) / depth_scale
-        depth = torch.where(depth == 0, torch.full_like(d, float("nan")), d)
+    rgb, depth = frame_to_float(rgb, depth, depth_scale)
     intensity = torch.mean(rgb, dim=-1)
     depth = torch.where((depth < depth_cut_min) | (depth > depth_cut_max),
                         torch.full_like(depth, float("nan")), depth)

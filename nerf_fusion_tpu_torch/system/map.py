@@ -253,6 +253,12 @@ class SparseVoxelMap:
                              else self._updated_dev | updated)
         return updated
 
+    def check_overflow(self):
+        """Raise if an integration found the map's capacities too small."""
+        if bool(self.state.overflow):
+            raise RuntimeError(
+                "Map capacity overflow: raise mapping.latent_capacity/alloc_capacity")
+
     # -- persistence: the JAX package's map.npz layout -----------------------
     def save(self, path):
         np.savez(Path(path), **{k: v.cpu().numpy() for k, v in self.state._asdict().items()})

@@ -135,6 +135,12 @@ class FusionPipeline:
             drops = torch.cat([d.reshape(-1) for d in self.tracker.drop_fracs]).cpu().numpy()
             results["box_filter_drop_frac"] = {
                 "mean": float(drops.mean()), "max": float(drops.max())}
+            if drops.max() > 0.05:
+                logging.warning(
+                    "box-filter drop rate peaked at %.1f%% (>5%%): raise "
+                    "mapping.points_capacity", 100 * drops.max())
+        results["map"] = {"n_occupied": int(self.map.state.n_occupied),
+                          "overflow": bool(self.map.state.overflow)}
         if sequence.gt_trajectory is not None and not use_gt_pose:
             results["ate_rmse"] = ate_rmse(poses, sequence.gt_trajectory[:n])
         gt_sdf = getattr(sequence, "scene_sdf", None)

@@ -76,6 +76,18 @@ def test_block_tracking_matches_per_frame():
     assert len(set(ptrs)) == len(ptrs)
 
 
+def test_run_reports_the_map_and_check_overflow_raises():
+    """``run`` reports the voxels allocated and the overflow flag; the map's
+    ``check_overflow`` raises once an integration sets the flag."""
+    pipe, res = _run(1, n=3)
+    assert res["map"]["n_occupied"] == int(pipe.map.state.n_occupied) > 0
+    assert res["map"]["overflow"] is False
+    pipe.map.check_overflow()
+    pipe.map.state.overflow.fill_(True)
+    with pytest.raises(RuntimeError, match="latent_capacity"):
+        pipe.map.check_overflow()
+
+
 def test_frames_per_call_must_be_positive():
     args = exp_util.parse_config_yaml(REPO / "configs" / "fusion-synth.yaml")
     model, args.model = load_model(REPO / args.training_hypers, args.using_epoch)
