@@ -34,7 +34,7 @@
    the kernel names, grids and the number of device events of each trace
    (``utils.timing.device_trace``): a trace can lose events, and
    ``utils.timing.per_call`` reads such a trace by its mean event.
-3. Runs eight paths, each with the launch counters zeroed just before:
+3. Runs nine paths, each with the launch counters zeroed just before:
    (a) the dense fusion loop through its entry point
        (``nerf_fusion_tpu_torch.main configs/fusion-synth.yaml``, 640x480,
        all 100 frames), each tracked frame after the first as CUDA graph
@@ -57,7 +57,19 @@
        side stream; its ``first_tq`` from the export;
    (g) ``configs/fusion-lr-kt-fast.yaml`` on the same export;
    (h) ``configs/fusion-scannet-scale.yaml``: the large scene, 400 frames,
-       map capacity 65536, 4 M triangles.
+       map capacity 65536, 4 M triangles;
+   (i) the prior's offline path (``train_path``): LIF generation through
+       ``nerf_fusion_tpu_torch.data_generator`` on ``configs/data-simple.yaml``
+       at 4 of its 40 shapes, then ``nerf_fusion_tpu_torch.network_trainer``
+       on ``configs/train-cnp.yaml`` at its full width (64 LIFs x 4096
+       samples a step) for two epochs of 20 steps, with the host sampler and
+       again with ``device_data`` and ``steps_per_call: 10``; the trained
+       checkpoint folded by ``load_model`` through ``decoder_forward`` and
+       ``encoder_forward``, held within 1e-4 of the training modules in eval
+       mode.  It prints the step time, the device's idle share, peak memory
+       and both samplers' times; it fails unless every logged loss is finite,
+       epoch 2's mean ll is below epoch 1's on both runs and the snapshot
+       files exist.
    Each fusion path runs in a profiler trace and prints its graph replays,
    host reads and kernels (from the trace) per frame, and its ATE, mesh
    |SDF| (for the lr-kt export against the room's SDF), box-filter drop,
@@ -72,8 +84,9 @@
    photometric kernel, the fused frontend stencil and ``gn_step`` on the
    fusion paths, ``select_gather`` on (b), (g) and (h), the row gather on no
    fusion path and at 1, 2 and 4 on (d), the two standalone stencils on
-   (e), and on every fusion path the box filter dropped nothing, the map
-   did not overflow and ATE and mesh |SDF| are below the path's gates
+   (e), the decoder and the encoder on (i), and on every fusion path the
+   box filter dropped nothing, the map did not overflow and ATE and mesh
+   |SDF| are below the path's gates
    (``GATES``: 20 / 20 mm; lr-kt 20 / 28 mm, lr-kt fast 12 / 20 mm).
 4. Prints the ``{"kernels": [...]}`` line, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -99,6 +112,10 @@ FAST_EXEC = "tracking['rgb']['pixel_budget']=24576;mesh_reuse_latent_eps=0.003"
 LRKT_CONFIG = "configs/fusion-lr-kt.yaml"
 LRKT_FAST_CONFIG = "configs/fusion-lr-kt-fast.yaml"
 SCANNET_CONFIG = "configs/fusion-scannet-scale.yaml"
+TRAIN_DATA_CONFIG = "configs/data-simple.yaml"
+TRAIN_CONFIG = "configs/train-cnp.yaml"
+TRAIN_SHAPES = 4        # of the config's 40: about 2700 LIFs
+TRAIN_STEPS = 20        # per epoch, two epochs
 # (ATE, mesh |SDF|) gates in metres per fusion path; lr-kt's are the JAX
 # bench's (bench.py: parity 20 / 28 mm, fast 12 / 20 mm)
 GATES = {"dense": (0.02, 0.02), "fast": (0.02, 0.02), "fpc19": (0.02, 0.02),
@@ -994,6 +1011,170 @@ def prefetch_check(dev, lrkt_exec: str, n_frames: int = 41):
                  f"up to {diff}")
 
 
+def train_path(dev):
+    """The prior's offline path through its two entry points: LIF generation
+    (``configs/data-simple.yaml`` at ``TRAIN_SHAPES`` shapes), then the trainer
+    on ``configs/train-cnp.yaml`` at its full width for two epochs of
+    ``TRAIN_STEPS`` steps, once as the config gives it (host sampler) and once
+    with ``device_data: true`` and ``steps_per_call: 10``, and at its end the
+    trained checkpoint folded by ``load_model`` and run through
+    ``decoder_forward`` (262144 rows: one training batch's decoder input) and
+    ``encoder_forward`` (327680 surface rows).  Launch counters zeroed before
+    the path.  Fails unless every logged loss is finite, epoch 2's mean ll is
+    below epoch 1's on both runs, the snapshot files exist and the kernels'
+    outputs are within ``TOL_MLP`` of the training modules in eval mode.
+    Prints per run the step time over steps 11-20 (CUDA events), the device's
+    busy time and idle share over steps 31-40 (a profiler trace of the
+    device), peak memory, and the two samplers' times for one batch (the
+    host's on its clock, the device's as device time and as call time)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nerf_fusion_tpu_torch import data_generator, network_trainer
+    from nerf_fusion_tpu_torch.data.device_lif import DeviceLifDataset
+    from nerf_fusion_tpu_torch.data.lif_dataset import LifDataset
+    from nerf_fusion_tpu_torch.models import io
+    from nerf_fusion_tpu_torch.models.encoder import EncoderConfig, TrainEncoder
+    from nerf_fusion_tpu_torch.utils.config import parse_config_json
+    from nerf_fusion_tpu_torch.utils.timing import call_ms, device_ms
+
+    out = REPO / "output" / "chip_smoke" / "train"
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    lif_dir = data_generator.main([str(REPO / TRAIN_DATA_CONFIG), "--exec",
+                                   f"provider_kwargs['n_shapes']={TRAIN_SHAPES};"
+                                   f"output='{out / 'lif'}'"])
+    gen_s = time.perf_counter() - t0
+    n_lifs = len(json.loads((lif_dir / "source.json").read_text()))
+    print(f"train path: {n_lifs} LIFs from {TRAIN_SHAPES} shapes in {gen_s:.2f} s "
+          f"(host: numpy, scipy and the native sampler)", flush=True)
+    if n_lifs < 64:
+        fail(f"train: the generator gave {n_lifs} LIFs, fewer than one batch")
+
+    runs = {}
+    for label, extra in (("host", ""), ("device", ";device_data=True;steps_per_call=10")):
+        marks, window = {}, {}
+
+        def hook(it):
+            # steps 11-20: CUDA events; steps 31-40: a trace of the device
+            if it in (10, 20):
+                marks[it] = torch.cuda.Event(enable_timing=True)
+                marks[it].record()
+            elif it == 30:
+                torch.cuda.synchronize()
+                window["prof"] = profile(activities=[ProfilerActivity.CUDA])
+                window["prof"].start()
+                window["t0"] = time.perf_counter()
+            elif it == 40:
+                torch.cuda.synchronize()
+                window["wall"] = time.perf_counter() - window["t0"]
+                window["prof"].stop()
+
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        save_dir = network_trainer.main(
+            [str(REPO / TRAIN_CONFIG), "--device", str(dev), "--exec",
+             f"train_set[0]['data_path']='{lif_dir}';save_dir='{out}';run_name='{label}';"
+             f"num_epochs=2;max_steps_per_epoch={TRAIN_STEPS};additional_snapshots=[2]"
+             f"{extra}"], step_hook=hook)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base   # the run's own, not earlier paths'
+        if set(marks) != {10, 20} or "wall" not in window:
+            fail(f"train ({label}): the step hook saw {sorted(marks)}, window {sorted(window)}")
+        step_ms = marks[10].elapsed_time(marks[20]) / 10
+        events = [e for e in window["prof"].profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA]
+        busy_us = sum(e.duration_ns() * 1e-3 for e in events)
+        idle = 1 - busy_us * 1e-6 / window["wall"]
+        recs = [json.loads(l) for l in (save_dir / "logs" / "scalars.jsonl").read_text().splitlines()]
+        values = [r.get("scalar", r.get("train")) for r in recs]
+        if not values or not all(np.isfinite(v) for v in values):
+            fail(f"train ({label}): a logged loss is not finite: {recs}")
+        lls = [r["train"] for r in recs if r["tag"] == "epoch_sum/ll"]
+        if len(lls) != 2 or not lls[1] < lls[0]:
+            fail(f"train ({label}): epoch mean ll {lls} did not fall")
+        missing = [f for f in ("hyper.json", "model_2.npz", "encoder_2.npz", "training_2.npz",
+                               "optimizer_2.pt") if not (save_dir / f).exists()]
+        if missing:
+            fail(f"train ({label}): snapshot files missing: {missing}")
+        runs[label] = dict(step_ms=step_ms, idle_share=idle, busy_ms_per_step=busy_us * 1e-4,
+                           window_ms_per_step=window["wall"] * 100,
+                           device_events_per_step=len(events) / 10, peak_gb=peak / 1e9,
+                           wall_s=wall, epoch_ll=lls, save_dir=save_dir)
+        print(f"train path ({label} sampler): step {step_ms:.3f} ms over steps 11-20 (CUDA "
+              f"events); over steps 31-40 the device busy {busy_us * 1e-4:.3f} of "
+              f"{window['wall'] * 100:.3f} ms a step in {len(events) / 10:.1f} device events, "
+              f"idle share {idle:.4f}; peak memory "
+              f"{peak / 1e9:.3f} GB; epoch mean ll {lls}; {wall:.2f} s for the run "
+              f"({torch.cuda.get_device_name(0)})", flush=True)
+
+    # the slice's end: the trained checkpoint folded for the kernels
+    save_dir = runs["device"]["save_dir"]
+    nets, hyper = io.load_model(save_dir / "hyper.json", 2)
+    nets.to(dev)
+    cfg = parse_config_json(save_dir / "hyper.json")
+    ts = cfg.train_set[0]
+    ds = LifDataset(ts["data_path"], num_sample=cfg.samples_per_lif,
+                    num_surface_sample=ts["num_surface_sample"],
+                    augment_rotation=ts["augment_rotation"], augment_noise=ts["augment_noise"])
+    dev_ds = DeviceLifDataset(ds, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sdf, surf = dev_ds.sample(torch.arange(64, device=dev), gen)
+    enc_p = io.load_params(save_dir / "encoder_2.npz")
+    tenc = TrainEncoder(EncoderConfig(cfg.code_length, cfg.encoder_specs["per_point_feat"],
+                                      bn=cfg.encoder_specs.get("bn"), mode="cnp"),
+                        enc_p["params"], enc_p["bn"]).to(dev).eval()
+    tdec = io.load_checkpoint(io.build_model(cfg), save_dir, 2).decoder.to(dev).eval()
+    with torch.no_grad():
+        lat = nets.encoder(surf.reshape(-1, 6)).reshape(64, -1, cfg.code_length).mean(1)
+        x = torch.cat([lat.repeat_interleave(sdf.shape[1], 0), sdf.reshape(-1, 4)[:, :3]], 1)
+        enc_x = dev_ds.surf[torch.arange(327680, device=dev) % dev_ds.surf.shape[0]]
+        sdf_k, std_k = nets.decoder(x)
+        lat_k = nets.encoder(enc_x)
+        torch.cuda.synchronize()
+        launches_ = read_launches()
+        sdf_t, std_t = tdec(x)
+        dec_err = max(float((sdf_k - sdf_t).abs().max()), float((std_k - std_t).abs().max()))
+        enc_err = float((lat_k - tenc(enc_x)).abs().max())
+    print(f"train path: trained checkpoint (epoch 2) through the kernels: decoder_forward on "
+          f"{x.shape[0]} rows max abs err {dec_err:.3g}, encoder_forward on {enc_x.shape[0]} "
+          f"rows max abs err {enc_err:.3g} against the training modules in eval mode; "
+          f"launches {launches_}", flush=True)
+    if not (dec_err <= TOL_MLP and enc_err <= TOL_MLP):
+        fail(f"train: the trained checkpoint's kernels differ from the training modules "
+             f"(decoder {dec_err}, encoder {enc_err}; tolerance {TOL_MLP})")
+
+    # one batch from each sampler (64 LIFs x 4096 samples + 128 surface points)
+    idxs = np.arange(64)
+    for _ in range(2):
+        ds.sample_batch(idxs)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        ds.sample_batch(idxs)
+    host_ms = (time.perf_counter() - t0) * 100
+    didx = torch.arange(64, device=dev)
+    dev_ms = device_ms(lambda: dev_ds.sample(didx, gen))
+    dev_call_ms = call_ms(lambda: dev_ds.sample(didx, gen))
+    print(f"train path: one batch from the host sampler (LifDataset.sample_batch) "
+          f"{host_ms:.3f} ms on the host, from the device sampler {dev_ms:.4f} ms of device "
+          f"time ({dev_call_ms:.3f} ms a call between CUDA events); pools "
+          f"{dev_ds.nbytes / 1e9:.3f} GB on the card", flush=True)
+    res = {k: {kk: vv for kk, vv in v.items() if kk != "save_dir"} for k, v in runs.items()}
+    res.update(n_lifs=n_lifs, generate_s=gen_s, host_sampler_ms=host_ms,
+               device_sampler_ms=dev_ms, device_sampler_call_ms=dev_call_ms,
+               decoder_err=dec_err, encoder_err=enc_err)
+    print("train path: " + json.dumps({"train": res}), flush=True)
+    return launches_, res
+
+
 def probe_path(label: str, probe):
     """A probe module (the gather or the frontend probe) through its entry
     point, launch counters zeroed."""
@@ -1016,6 +1197,7 @@ def check_launches(paths: dict):
         "fast": fusion + ("select_gather",), "lrkt_fast": fusion + ("select_gather",),
         "scannet_scale": fusion + ("select_gather",),
         "probe": ("row_gather", "row_gather_c1", "lane_gather"),
+        "train": ("decoder_forward", "encoder_forward"),
         "frontend_probe": ("stencil_count", "stencil_normals", "stencil_frontend"),
     }
     for label, names in required.items():
@@ -1080,6 +1262,7 @@ def main() -> int:
     paths["lrkt_fast"], _ = fusion_path(dev, "lrkt_fast", lrkt_exec, LRKT_FAST_CONFIG)
     paths["scannet_scale"], _ = fusion_path(dev, "scannet_scale", None, SCANNET_CONFIG)
     prefetch_check(dev, lrkt_exec)
+    paths["train"], _ = train_path(dev)
     check_launches(paths)
     kernels = []
     for r in rows:

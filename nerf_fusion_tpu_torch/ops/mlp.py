@@ -30,7 +30,7 @@ ENCODER_PACKED = 27264
 
 
 def fold_decoder_weights(params: dict) -> list:
-    """Weight-norm (g, v, b) -> [(W (in, out), b)] for lin0..lin4 and unc.
+    """Weight-norm (g, v, b) -> [(W (in, out), b)] for lin0, lin1, ... and unc.
 
     ``params`` holds numpy arrays in the JAX pytree layout
     ({'lin0': {'v', 'g', 'b'} | {'w', 'b'}, ..., 'unc': {'w', 'b'}}).
@@ -38,7 +38,7 @@ def fold_decoder_weights(params: dict) -> list:
     depend on a reduction's summation order.
     """
     mats = []
-    for name in ["lin0", "lin1", "lin2", "lin3", "lin4", "unc"]:
+    for name in [f"lin{i}" for i in range(len(params) - 1)] + ["unc"]:
         p = {k: torch.tensor(np.asarray(v), dtype=torch.float64)
              for k, v in params[name].items()}
         if "v" in p:

@@ -500,3 +500,77 @@ def test_tracked_frames_replay_as_graphs(cuda_device, budget):
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert all(torch.isfinite(p).all() for p in tr.all_pd_pose[-1])
     assert isinstance(tr.gn, gn.GNState)
+
+
+def _full_width_train_args():
+    from nerf_fusion_tpu_torch.utils.config import parse_config_yaml
+
+    args = parse_config_yaml(CKPT.parent.parent.parent / "configs/train-cnp.yaml")
+    # no dropout: the card's and the CPU's random streams differ
+    args.network_specs = dict(args.network_specs, dropout_prob=0.0)
+    return args
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One step of configs/train-cnp.yaml at its full width (latent 29,
+    decoder 128 x 4 with weight norm, encoder 6-32-64-256 with BatchNorm,
+    16 LIFs x 4096 samples + 128 surface points, dropout off): the loss
+    terms and every gradient on the card within 1e-4 of the CPU's."""
+    from nerf_fusion_tpu_torch.models.io import build_model
+    from nerf_fusion_tpu_torch.trainer.train import TrainStep
+    from nerf_fusion_tpu_torch.utils.config import dict_to_args
+
+    args = _full_width_train_args()
+    g = torch.Generator().manual_seed(0)
+    sdf = torch.cat([torch.rand(16, 4096, 3, generator=g) - 0.5,
+                     0.2 * torch.randn(16, 4096, 1, generator=g)], -1)
+    nrm = torch.randn(16, 128, 3, generator=g)
+    surf = torch.cat([torch.rand(16, 128, 3, generator=g) - 0.5,
+                      nrm / nrm.norm(dim=-1, keepdim=True)], -1)
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        model = build_model(args, seed=0).to(dev)
+        step = TrainStep(model, dict_to_args(args.training_loss), 4096, 1,
+                         torch.Generator(device=dev).manual_seed(0))
+        logs = step.loss_and_grads(sdf.to(dev), surf.to(dev), 1)
+        grads = {f"dec.{n}": p.grad.cpu() for n, p in model.decoder.named_parameters()}
+        grads.update({f"enc.{n}": p.grad.cpu() for n, p in model.encoder.named_parameters()})
+        out[dev.type] = ({k: v.item() for k, v in logs.items()}, grads)
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    for k in lc:
+        assert abs(lg[k] - lc[k]) <= 1e-4 * abs(lc[k]), k
+    for k in gc:
+        assert (gg[k] - gc[k]).abs().max() <= 1e-4 * gc[k].abs().max(), k
+
+
+@pytest.mark.cuda
+def test_trained_checkpoint_through_the_kernels(cuda_device):
+    """ckpt/full_trained (600 epochs) loaded into the training modules and
+    folded by load_model: decoder_forward on 262144 rows and
+    encoder_forward on 327680 rows within 1e-4 of the training modules in
+    eval mode."""
+    from nerf_fusion_tpu_torch.models import io
+    from nerf_fusion_tpu_torch.models.encoder import EncoderConfig, TrainEncoder
+    from nerf_fusion_tpu_torch.utils.config import parse_config_json
+
+    hyper = CKPT.parent.parent / "full_trained/hyper.json"
+    args = parse_config_json(hyper)
+    nets, _ = load_model(hyper, 600)
+    nets.to(cuda_device)
+    tdec = io.load_checkpoint(io.build_model(args), hyper.parent, 600).decoder
+    tdec.to(cuda_device).eval()
+    enc = io.load_params(hyper.parent / "encoder_600.npz")
+    tenc = TrainEncoder(EncoderConfig(args.code_length, args.encoder_specs["per_point_feat"],
+                                      bn=args.encoder_specs.get("bn"), mode="cnp"),
+                        enc["params"], enc["bn"]).to(cuda_device).eval()
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.cat([0.3 * torch.randn(262144, 29, device=cuda_device, generator=g),
+                   torch.rand(262144, 3, device=cuda_device, generator=g) - 0.5], 1)
+    pts = torch.randn(327680, 6, device=cuda_device, generator=g)
+    with torch.no_grad():
+        sdf_k, std_k = nets.decoder(x)
+        sdf_t, std_t = tdec(x)
+        lat_k, lat_t = nets.encoder(pts), tenc(pts)
+    assert (sdf_k - sdf_t).abs().max() <= 1e-4 and (std_k - std_t).abs().max() <= 1e-4
+    assert (lat_k - lat_t).abs().max() <= 1e-4
