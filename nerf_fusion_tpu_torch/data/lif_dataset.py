@@ -296,6 +296,15 @@ class LifCombinedDataset:
         return samples, surf
 
 
+def prepare(dataset):
+    """Build the packed pools of every ``LifDataset`` in ``dataset`` now, as
+    the first ``sample_batch`` would: a dataset on disk writes ``packed/``
+    beside its payload, which one process must do alone."""
+    for d in getattr(dataset, "datasets", (dataset,)):
+        if hasattr(d, "_ensure_packed"):
+            d._ensure_packed()
+
+
 def batch_iterator(dataset, batch_size: int, shuffle: bool = True,
                    drop_last: bool = True, seed: int = 0,
                    num_workers: int = None, prefetch: int = None,

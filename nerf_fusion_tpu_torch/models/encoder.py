@@ -13,7 +13,10 @@ semantics (batch statistics in training, biased variance to normalise,
 the unbiased one into the running estimate, momentum 0.1, eps 1e-5),
 masked statistics and a masked mean-pool where a point mask is given
 (``nn.BatchNorm1d`` has no mask), no bias on a layer that BN follows.  As
-in the JAX trainer, the BN scale and shift are state, not trained.
+in the JAX trainer, the BN scale and shift are state, not trained.  With
+``sync_stats`` (data parallelism) the statistics are those of every rank's
+batch together, as JAX takes them over the whole sharded batch
+(``nn.SyncBatchNorm`` takes no mask).
 ``fold()`` gives the eval ``Encoder``'s matrices.
 """
 
@@ -112,6 +115,7 @@ class TrainEncoder(nn.Module):
     def __init__(self, config: EncoderConfig, params: dict, bn: dict):
         super().__init__()
         self.config = config
+        self.sync_stats = False
         for i in range(config.n_layers):
             self.add_module(f"layer{i}", _Layer(params[f"layer{i}"], bn.get(f"layer{i}")))
 
@@ -130,16 +134,7 @@ class TrainEncoder(nn.Module):
                 h = h + layer.b
             if cfg.has_bn(i):
                 if self.training:
-                    if w is not None:
-                        cnt = w.sum().clamp_min(1.0)
-                        mean = (h * w).sum((0, 1)) / cnt
-                        var = (w * (h - mean) ** 2).sum((0, 1)) / cnt
-                        unbiased = var * cnt / (cnt - 1.0).clamp_min(1.0)
-                    else:
-                        mean = h.mean((0, 1))
-                        var = h.var((0, 1), unbiased=False)
-                        cnt = h.shape[0] * h.shape[1]
-                        unbiased = var * cnt / max(cnt - 1, 1)
+                    mean, var, unbiased = self._batch_moments(h, w)
                     with torch.no_grad():
                         layer.mean.copy_((1 - _BN_MOMENTUM) * layer.mean
                                          + _BN_MOMENTUM * mean)
@@ -156,6 +151,27 @@ class TrainEncoder(nn.Module):
             else:
                 h = h.mean(1)
         return h[0] if squeeze else h
+
+    def _batch_moments(self, h: torch.Tensor, w: torch.Tensor = None):
+        """(mean, biased var, unbiased var) over the valid rows of (B, N, C)
+        ``h``; with ``sync_stats`` over the valid rows of every rank's
+        batch, the sums all-reduced inside the autograd graph."""
+        if self.sync_stats:
+            import torch.distributed as dist
+            from torch.distributed.nn.functional import all_reduce
+
+            total, world = all_reduce, dist.get_world_size()
+        else:
+            total, world = (lambda t: t), 1
+        if w is None:
+            cnt = float(h.shape[0] * h.shape[1] * world)
+            mean = total(h.sum((0, 1))) / cnt
+            var = total(((h - mean) ** 2).sum((0, 1))) / cnt
+            return mean, var, var * cnt / max(cnt - 1.0, 1.0)
+        cnt = total(w.sum()).clamp_min(1.0)
+        mean = total((h * w).sum((0, 1))) / cnt
+        var = total((w * (h - mean) ** 2).sum((0, 1))) / cnt
+        return mean, var, var * cnt / (cnt - 1.0).clamp_min(1.0)
 
     def tree(self):
         """(params, bn): the JAX package's pytrees of numpy arrays."""

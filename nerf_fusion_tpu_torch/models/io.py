@@ -56,11 +56,11 @@ def _unflatten(flat: dict) -> dict:
     return tree
 
 
-def _flatten(tree: dict, prefix: str = "") -> dict:
+def flatten(tree: dict, prefix: str = "") -> dict:
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
-            out.update(_flatten(v, f"{prefix}{k}/"))
+            out.update(flatten(v, f"{prefix}{k}/"))
         else:
             out[f"{prefix}{k}"] = np.asarray(v)
     return out
@@ -72,7 +72,7 @@ def load_params(path) -> dict:
 
 
 def save_params(path, tree: dict):
-    np.savez(path, **_flatten(tree))
+    np.savez(path, **flatten(tree))
 
 
 def params_from_jax(decoder_params: dict, encoder_params: dict,
@@ -172,6 +172,55 @@ def load_checkpoint(model: TrainNetworks, save_dir, epoch: int) -> TrainNetworks
     enc = load_params(save_dir / f"encoder_{epoch}.npz")
     return _load_trees(model, load_params(save_dir / f"model_{epoch}.npz"),
                        enc["params"], enc.get("bn", {}))
+
+
+def _dotted(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_dotted(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = torch.from_numpy(np.array(v, dtype=np.float32))
+    return out
+
+
+def mlp_from_jax(params: dict, dims, bn: bool = False, shared: bool = False,
+                 last_act: bool = False):
+    """The JAX ``init_mlp`` / ``init_shared_mlp`` pytree (numpy leaves) as a
+    ``zoo.MLP`` (``SharedMLP`` with ``shared``)."""
+    from .zoo import MLP, SharedMLP
+
+    net = (SharedMLP if shared else MLP)(dims, bn=bn, last_act=last_act)
+    net.load_state_dict(_dotted(params))
+    return net
+
+
+def _resnet_state(params: dict) -> dict:
+    """The JAX backbone pytree's keys as torchvision's."""
+    bn = lambda p, pre: {f"{pre}.weight": p["scale"], f"{pre}.bias": p["bias"],
+                         f"{pre}.running_mean": p["mean"], f"{pre}.running_var": p["var"]}
+    sd = {"conv1.weight": params["conv1"]["w"], **bn(params["bn1"], "bn1")}
+    for name, blk in params.items():
+        if not name.startswith("layer"):
+            continue
+        sd[f"{name}.conv1.weight"] = blk["conv1"]["w"]
+        sd[f"{name}.conv2.weight"] = blk["conv2"]["w"]
+        sd.update(bn(blk["bn1"], f"{name}.bn1"))
+        sd.update(bn(blk["bn2"], f"{name}.bn2"))
+        if "down_conv" in blk:
+            sd[f"{name}.downsample.0.weight"] = blk["down_conv"]["w"]
+            sd.update(bn(blk["down_bn"], f"{name}.downsample.1"))
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def img_encoder_from_jax(enc_type: str, params: dict, **kwargs):
+    """The JAX image encoder of ``enc_type`` (spatial, global, conv, resnet;
+    its config from ``kwargs``) with the pytree's weights (numpy leaves)."""
+    from .img_encoder import make_encoder
+
+    net = make_encoder(enc_type, **kwargs)
+    net.load_state_dict(_resnet_state(params) if enc_type == "resnet" else _dotted(params))
+    return net
 
 
 def write_hyper_json(save_dir, args):

@@ -327,12 +327,16 @@ def track_gauss_newton(map_state, map_cfg, decoder, tcfg: TrackerConfig,
 class _Graph:
     """``fn()`` captured as a CUDA graph (``out``: its outputs, whose storage
     each replay rewrites).  The capture launches nothing, so its launch
-    counts are taken back; ``replay`` adds them once per replay."""
+    counts are taken back; ``replay`` adds them once per replay.  The
+    capture checks this thread's CUDA calls only: a reader's decode threads
+    run beside it (a capture of the same prelude that passed twice failed
+    once with the capture invalidated, in a run with the prefetcher's
+    threads alive)."""
 
     def __init__(self, fn):
         before = launches.snapshot()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.out = fn()
         self.launches = launches.diff(launches.snapshot(), before)
         launches.add(self.launches, -1)

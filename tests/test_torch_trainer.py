@@ -231,8 +231,8 @@ def test_entries_train_and_loss_falls(lif_dir, tmp_path):
     sdf_j, _ = apply_decoder(jm.decoder_params, jm.decoder_config, jnp.asarray(x))
     np.testing.assert_allclose(tm.decoder(torch.as_tensor(x))[0].numpy(), np.asarray(sdf_j),
                                atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        network_trainer.main([str(REPO / "configs/train-cnp.yaml"), "--dp", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             network_trainer.main([str(REPO / "configs/train-cnp.yaml"), "--exec", ex])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            network_trainer.main([str(REPO / "configs/train-cnp.yaml"), "--dp", "2"])
