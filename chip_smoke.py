@@ -23,17 +23,24 @@
    as ``configs/fusion-lr-kt.yaml`` runs it) and at the fast path's
    24576-pixel selection.  ``gn_step`` on every step of a real frame's GN
    loops (dense and sparse), replayed on copies of the recorded state: the
-   new pose within 1e-5 of its largest entry, the decisions equal.  A bound
+   new pose within 1e-5 of its largest entry, the decisions equal.
+   ``decoder_vjp`` at the refinement's 327680 rows: dx within 1e-3 of each
+   row's largest entry on 99.9 % of the rows, its library call the same VJP
+   by autograd over ``decoder_forward_plain``.  A bound
    is taken at the peak of the unit the kernel computes on
    (``bound_peak``): the decoders' and the encoder's at three TF32
    tensor-core passes, with the f32 CUDA-core bound beside it
-   (``bound_f32_ms``).  The fused frontend stencil is held to the plain
+   (``bound_f32_ms``); ``decoder_vjp``'s too (f32-exact products take three
+   TF32 passes on the card), though it computes on the CUDA cores.  The fused frontend stencil is held to the plain
    composition: points bitwise, the final mask pixel for pixel, normals
    by direction on the mask and zero off it, two calls bitwise.  The three
    stencil rows are timed a second time after the photometric phase, with
    the kernel names, grids and the number of device events of each trace
    (``utils.timing.device_trace``): a trace can lose events, and
    ``utils.timing.per_call`` reads such a trace by its mean event.
+   The synthetic renderer's batch mode (``render_check``) is held bitwise
+   to the single-frame render at 640x480 in both scenes, and a frame timed
+   each way.
 3. Runs the paths below, each with the launch counters zeroed just before:
    (a) the dense fusion loop through its entry point
        (``nerf_fusion_tpu_torch.main configs/fusion-synth.yaml``, 640x480,
@@ -47,6 +54,21 @@
        mesh |SDF| of (a) run again; both runs under PyTorch's
        deterministic algorithms (``index_add_`` atomics make two runs of
        the same path differ otherwise);
+   (c1) the fusion loop's options on fusion-synth (``OPTION_EXECS``), each
+       with the dense path's gates: ``refine`` (``do_optimize``: per
+       refinement its eligible and sampled voxels, device ms and the mean
+       NLL of the first and last Adam step; ``decoder_vjp`` launches =
+       refinements x ``optim_n_iters``; fails if no voxel is refined),
+       ``mesh_fast`` (triangles within 20 % of (a)'s, mesh ms beside (a)'s,
+       the cadence mesh's slowest call apart, and the final map re-meshed
+       whole with either decode, three times alternated),
+       ``async`` (``run_async`` and ``do_optimize``: extractions started and
+       returned, refinements dispatched and merged, all > 0; each stream's
+       busy ms and its overlap with the main stream's kernels; track ms
+       beside (a)'s) and ``hash_box`` (the fast path's deltas and
+       ``preprocess.box_filter_exact: false``: drop at most 0.05, the JAX
+       pipeline's warning level; ``preprocess_frame`` device ms with either
+       filter);
    (d) the gather probe (``nerf_fusion_tpu_torch.tools.gather_probe``);
    (e) the frontend probe (``nerf_fusion_tpu_torch.tools.preprocess_probe``);
    (f) ``configs/fusion-lr-kt.yaml`` as it is (stride-1 dense photometric
@@ -104,10 +126,10 @@
    a run without a prefetcher (both under PyTorch's deterministic
    algorithms).  Fails unless every kernel launched on some path, the
    photometric kernel, the fused frontend stencil and ``gn_step`` on the
-   fusion paths, ``select_gather`` on (b), (g) and (h), the row gather on no
+   fusion paths, ``decoder_vjp`` on ``refine`` and ``async``, ``select_gather`` on (b), (g) and (h), the row gather on no
    fusion path and at 1, 2 and 4 on (d), the two standalone stencils on
    (e), the decoder and the encoder on (i) and (j), ``stencil_frontend``
-   on (j), the decoder on (l), and on every fusion path the
+   on (j), the decoder on (l), and on every fusion path but ``hash_box`` the
    box filter dropped nothing, the map did not overflow and ATE and mesh
    |SDF| are below the path's gates
    (``GATES``: 20 / 20 mm; lr-kt 20 / 28 mm, lr-kt fast 12 / 20 mm).
@@ -144,10 +166,19 @@ SCENE_CONFIG = "configs/train_scannet.yaml"
 SCENE_FRAMES = 100      # the config's sequence; every fifth a keyframe
 SCENE_STEPS = 20        # per epoch, two epochs
 DP_STEPS = 10           # per epoch, two epochs
+# The fusion loop's options, each on fusion-synth (--exec deltas)
+OPTION_EXECS = {
+    "refine": "do_optimize=True",
+    "mesh_fast": "mesh_fast=True",
+    "async": "run_async=True;do_optimize=True",
+    "hash_box": FAST_EXEC + ";tracking['preprocess']={'box_filter_exact': False}",
+}
+HASH_DROP_MAX = 0.05    # the JAX pipeline's warning level (nerf_fusion_tpu/system/pipeline.py:215-220)
 # (ATE, mesh |SDF|) gates in metres per fusion path; lr-kt's are the JAX
 # bench's (bench.py: parity 20 / 28 mm, fast 12 / 20 mm)
 GATES = {"dense": (0.02, 0.02), "fast": (0.02, 0.02), "dense_det": (0.02, 0.02),
-         "fpc19": (0.02, 0.02),
+         "fpc19": (0.02, 0.02), "refine": (0.02, 0.02), "mesh_fast": (0.02, 0.02),
+         "async": (0.02, 0.02), "hash_box": (0.02, 0.02),
          "lrkt": (0.02, 0.028), "lrkt_fast": (0.012, 0.02), "scannet_scale": (0.02, 0.02)}
 # NVIDIA H100 SXM data sheet peaks (dense, at the 700 W limit).
 PEAK_F32_FLOPS = 67e12      # CUDA cores
@@ -159,6 +190,12 @@ PEAK_BYTES = 3.35e12
 # of lin3's re-fed input are weight rows, no product).
 DECODER_TC_MACS = 32 * 128 + 128 * 128 + 128 * 96 + 128 * 128
 DECODER_GRAD_TC_MACS = DECODER_TC_MACS + 3 * (128 * 128 + 128 * 96 + 96 * 128)
+# The decoder's VJP per row on the f32 CUDA cores: the forward recompute
+# (the four hidden layers and the two heads) and the reverse pass (the
+# heads' gradient into lin3's output, then lin3, lin2, lin1 and lin0
+# transposed).
+DECODER_VJP_MACS = (DECODER_TC_MACS + 2 * 128) + (2 * 128 + 128 * 128 + 96 * 128
+                                                  + 128 * 128 + 128 * 32)
 # The encoder's four layers, all on the tensor cores, MACs per row (the
 # function's: the kernel's zero padding of K 6 -> 8 and N 29 -> 32 is not
 # counted).
@@ -171,6 +208,7 @@ PHOTO_OPS_VALID = 96
 TOL_MLP = 1e-4          # decoder / encoder outputs: f32, summation order only
 TOL_HG = 1e-4           # photometric H, g, energy: of each output's largest |entry|
 TOL_GRAD = 1e-3         # decoder input gradient
+TOL_VJP = 1e-3          # decoder VJP: of each row's largest |entry|, on 99.9 % of the rows
 TOL_NORMAL_DOT = 0.999  # |n . n_plain| on 99 % of the valid pixels
 TOL_GN = 1e-5           # gn_step's new pose: of its largest |entry| (f32 LU, another library)
 TOL_ENC = 1e-4          # image encoders, card vs CPU: of the output's largest |entry| (f32)
@@ -543,6 +581,53 @@ def gn_phase(dev, seq, model):
         bound=bound_ms(600.0, 280 + 113), library_ms=None, recorded_steps=len(steps))]
 
 
+def decoder_vjp_row(dev, dec) -> dict:
+    """The decoder's VJP at the refinement's shape (fusion-synth's
+    points_capacity 40960 x 8 corner rows): dx within ``TOL_VJP`` of each
+    row's largest entry on 99.9 % of the rows (a ReLU input within rounding
+    of 0 may take the other side); the library call is the same VJP by
+    autograd over ``decoder_forward_plain`` (cuBLAS f32 products)."""
+    import torch
+
+    from nerf_fusion_tpu_torch.ops import mlp
+    from nerf_fusion_tpu_torch.utils.timing import call_ms, device_ms
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n = 8 * 40960
+    x = torch.cat([0.3 * torch.randn(n, 29, device=dev, generator=gen),
+                   torch.rand(n, 3, device=dev, generator=gen) - 0.5], 1)
+    g = torch.randn(n, 2, device=dev, generator=gen)
+    dx = mlp.decoder_vjp(x, g, dec.packed_vjp, dec.mats)
+    ref = mlp.decoder_vjp_plain(x, g, dec.mats)
+    torch.cuda.synchronize()
+    rel = (dx - ref).abs().amax(1) / ref.abs().amax(1).clamp_min(1e-30)
+
+    def library():
+        xr = x.detach().requires_grad_()
+        return torch.autograd.grad(mlp.decoder_forward_plain(xr, dec.mats), xr, g)
+
+    return dict(
+        name="decoder_vjp", err=float((dx - ref).abs().max()), tol=None,
+        row_rel_err=float(rel.max()), row_tol=TOL_VJP,
+        row_within_tol=float((rel <= TOL_VJP).float().mean()),
+        source="nerf_fusion_tpu_torch/csrc/mlp.cu",
+        replaces="none (no Pallas source): XLA's reverse-mode autodiff through apply_decoder "
+                 "in nerf_fusion_tpu/system/refine.py:79-101",
+        shape=f"({n}, 32) + ({n}, 2) -> ({n}, 32)",
+        ms=device_ms(lambda: mlp.decoder_vjp(x, g, dec.packed_vjp, dec.mats)),
+        call_ms=call_ms(lambda: mlp.decoder_vjp(x, g, dec.packed_vjp, dec.mats)),
+        plain_ms=device_ms(lambda: mlp.decoder_vjp_plain(x, g, dec.mats)),
+        library_ms=device_ms(library),
+        # the card's least time for f32-exact products is three TF32
+        # tensor-core passes, as for the decoder rows; the kernel runs them
+        # on the f32 CUDA cores (bound_f32)
+        bound=bound_ms(3 * 2 * DECODER_VJP_MACS * n,
+                       n * (32 + 2 + 32) * 4 + mlp.DECODER_VJP_PACKED * 4, PEAK_TF32_FLOPS),
+        bound_peak="tf32 tensor cores, 3 passes",
+        bound_f32=bound_ms(2 * DECODER_VJP_MACS * n,
+                           n * (32 + 2 + 32) * 4 + mlp.DECODER_VJP_PACKED * 4))
+
+
 def kernel_phase(dev):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
@@ -712,6 +797,7 @@ def kernel_phase(dev):
     rows += gather_phase(dev, seq.render_frame(1))
     rows += photometric_phase(dev, seq)
     rows += gn_phase(dev, seq, model)
+    rows.append(decoder_vjp_row(dev, dec))
     # the stencil rows once more, after the photometric phase, event by event
     for r in rows:
         if r["name"] in retime:
@@ -725,7 +811,8 @@ def kernel_phase(dev):
                   f"{sorted({(e['name'][-40:], str(e['grid']), str(e['block'])) for e in events})}",
                   flush=True)
     for r in rows:
-        extra = {k: r[k] for k in ("grad_err", "grad_within_tol", "normal_agree_frac",
+        extra = {k: r[k] for k in ("grad_err", "grad_within_tol", "row_rel_err",
+                                   "row_within_tol", "normal_agree_frac",
                                    "count_err", "mask_diff", "pts_equal", "off_mask_zero",
                                    "repeat_equal", "library_ms", "selection_matches_cpu")
                  if k in r}
@@ -758,12 +845,17 @@ def kernel_phase(dev):
     if g["grad_within_tol"] < 0.999:
         fail(f"decoder_forward_grad: gradient within {TOL_GRAD} on only "
              f"{g['grad_within_tol']:.5f} of the points")
+    v = next(r for r in rows if r["name"] == "decoder_vjp")
+    if v["row_within_tol"] < 0.999:
+        fail(f"decoder_vjp: dx within {TOL_VJP} of the row's largest entry on only "
+             f"{v['row_within_tol']:.5f} of the rows")
     return rows
 
 
 KERNEL_ROWS = ("decoder_forward", "decoder_forward_grad", "encoder_forward",
                "stencil_count", "stencil_normals", "stencil_frontend", "row_gather",
-               "row_gather_c1", "lane_gather", "photometric_hg", "select_gather", "gn_step")
+               "row_gather_c1", "lane_gather", "photometric_hg", "select_gather", "gn_step",
+               "decoder_vjp")
 
 
 def ptxas_report(report: dict):
@@ -850,12 +942,60 @@ def trace_counts(prof) -> tuple:
     return mine, total
 
 
+def stream_stats(prof) -> dict:
+    """Per CUDA stream of a trace: kernels, this repo's kernels by counter,
+    busy ms (the sum of kernel durations) and, for every stream but the main
+    one (the one with the most kernels), the ms of its kernels that overlap
+    a kernel of the main stream."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    from nerf_fusion_tpu_torch.ops import launches
+
+    by = {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() != DeviceType.CUDA or name.startswith(("Memcpy", "Memset")):
+            continue
+        by.setdefault(e.device_resource_id(), []).append((e.start_ns(), e.end_ns(), name))
+    main = max(by, key=lambda k: len(by[k]))
+    merged = []
+    for a, b, _ in sorted(by[main]):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    starts = [m[0] for m in merged]
+    out = {}
+    for sid, evs in by.items():
+        overlap = 0
+        if sid != main:
+            for a, b, _ in evs:
+                j = bisect.bisect_left(starts, b) - 1
+                while j >= 0 and merged[j][1] > a:
+                    overlap += min(b, merged[j][1]) - max(a, merged[j][0])
+                    j -= 1
+        mine = {}
+        for *_, name in evs:
+            c = launches.counter_of(name)
+            if c:
+                mine[c] = mine.get(c, 0) + 1
+        out[sid] = dict(main=sid == main, kernels=len(evs), repo_kernels=mine,
+                        busy_ms=1e-6 * sum(b - a for a, b, _ in evs),
+                        overlap_ms=1e-6 * overlap)
+    return out
+
+
 def fusion_path(dev, label: str, exec_: str = None, config: str = CONFIG,
-                max_frames: int = None):
+                max_frames: int = None, max_drop: float = 0.0, streams: bool = False,
+                after=None):
     """The fusion loop through its entry point, launch counters zeroed, in a
     profiler trace: the counters must equal the trace's kernels.  Fails on
-    the path's ATE and mesh |SDF| gates (``GATES``), a box-filter drop, a
-    map overflow or an empty mesh."""
+    the path's ATE and mesh |SDF| gates (``GATES``), a box-filter drop above
+    ``max_drop``, a map overflow or an empty mesh.  ``streams``: the trace's
+    ``stream_stats`` go into the result.  ``after(pipe, res)`` runs last,
+    outside the trace and the counted launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -911,8 +1051,9 @@ def fusion_path(dev, label: str, exec_: str = None, config: str = CONFIG,
     ate_gate, mesh_gate = GATES[label]
     if traced != counted:
         fail(f"{label}: launch counters {counted} differ from the trace's kernels {traced}")
-    if res["box_filter_drop_frac"]["max"] != 0.0:
-        fail(f"{label}: box filter dropped points: {res['box_filter_drop_frac']}")
+    if not res["box_filter_drop_frac"]["max"] <= max_drop:
+        fail(f"{label}: box filter dropped points: {res['box_filter_drop_frac']} "
+             f"(at most {max_drop})")
     try:
         pipe.map.check_overflow()
     except RuntimeError as e:
@@ -934,7 +1075,155 @@ def fusion_path(dev, label: str, exec_: str = None, config: str = CONFIG,
     print(f"{label} path: launch counters equal the trace's kernels; H, g, energy of each "
           f"group's captured evaluation bitwise equal to the eager call", flush=True)
     res["wall_s"] = wall
+    res["optim_n_iters"] = pipe.map.optim_n_iters
+    if streams:
+        res["streams"] = stream_stats(prof)
+    if after is not None:
+        after(pipe, res)
     return launches_, res
+
+
+def remesh_ms(pipe, res, reps: int = 3):
+    """The run's final map re-meshed whole (``no_cache``) with the full and
+    the fast decode, alternated ``reps`` times: ms a call (host clock,
+    synchronised before and after) and triangles, into ``res``."""
+    import torch
+
+    a = pipe.args
+    ms, tris = {False: [], True: []}, {}
+    for _ in range(reps):
+        for fast in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v = pipe.mesher.extract(a.resolution, max_std=getattr(a, "max_std", 0.15),
+                                    fast=fast, no_cache=True)
+            torch.cuda.synchronize()
+            ms[fast].append(1e3 * (time.perf_counter() - t0))
+            tris[fast] = len(v)
+    res["remesh_ms"], res["remesh_tris"] = ms, tris
+
+
+def render_check(dev):
+    """The synthetic renderer's batch mode on the card (an iterated sequence
+    renders ``RENDER_BATCH`` frames a pass) against the single-frame render,
+    bitwise with NaN depth at the same pixels, for both scenes at 640x480
+    (fusion-synth's and fusion-scannet-scale's first 17 frames), and the ms
+    of a frame each way (host clock over those frames, synchronised)."""
+    import torch
+
+    from nerf_fusion_tpu_torch.data import synth
+
+    n = 2 * synth.RENDER_BATCH + 1
+    for scene, length in (("room", 100), ("large", 400)):
+        seq = synth.SyntheticSequence(n_frames=length, width=640, height=480, scene=scene,
+                                      device=dev)
+        seq.render_frame(0)
+        ms, frames = {}, {}
+        for way, fn in (("batch", lambda i: next(seq)), ("single", seq.render_frame)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames[way] = [fn(i) for i in range(n)]
+            torch.cuda.synchronize()
+            ms[way] = 1e3 * (time.perf_counter() - t0) / n
+        for i, (a, b) in enumerate(zip(frames["batch"], frames["single"])):
+            for x, y in ((a.rgb, b.rgb), (a.depth, b.depth)):
+                if not (torch.equal(torch.isnan(x), torch.isnan(y))
+                        and torch.equal(torch.nan_to_num(x), torch.nan_to_num(y))):
+                    fail(f"render {scene}: frame {i} of a batch differs from its "
+                         f"single-frame render")
+        print(f"render {scene}: frames 0-{n - 1} of batches of {synth.RENDER_BATCH} bitwise "
+              f"equal to single-frame renders; {ms['batch']:.3f} ms a frame in batches, "
+              f"{ms['single']:.3f} ms one by one ({torch.cuda.get_device_name(0)})",
+              flush=True)
+
+
+def option_paths(dev, paths: dict, dense: dict):
+    """The fusion loop's options on fusion-synth (``OPTION_EXECS``), each
+    through the entry point with the dense path's gates, beside the dense
+    run ``dense``: refinement, the fast mesh decode, async meshing and
+    refinement, the hash box filter."""
+    import torch
+
+    from nerf_fusion_tpu_torch.data.synth import SyntheticSequence
+    from nerf_fusion_tpu_torch.system.frontend import preprocess_frame
+    from nerf_fusion_tpu_torch.utils.timing import device_ms
+
+    def stage(res, name):
+        return res["timing"][name]["mean_ms"] if name in res["timing"] else float("nan")
+
+    def refinements(label, res):
+        ref = res.get("refine", [])
+        for i, r in enumerate(ref):
+            print(f"{label} path: refinement {i}: {r['eligible']} eligible voxels refined, "
+                  f"{r['sampled']} with samples, {r['ms']:.3f} ms on the device (CUDA events), "
+                  f"mean NLL {r['nll_first']:.5f} at the first Adam step, "
+                  f"{r['nll_last']:.5f} at the last", flush=True)
+        want = len(ref) * res["optim_n_iters"]
+        if paths[label]["decoder_vjp"] != want:
+            fail(f"{label}: {paths[label]['decoder_vjp']} decoder_vjp launches, not "
+                 f"{len(ref)} refinements x {res['optim_n_iters']} Adam steps")
+        if sum(r["eligible"] for r in ref) == 0:
+            fail(f"{label}: no voxel was refined over the run")
+        return ref
+
+    paths["refine"], res = fusion_path(dev, "refine", OPTION_EXECS["refine"])
+    refinements("refine", res)
+
+    paths["mesh_fast"], res = fusion_path(dev, "mesh_fast", OPTION_EXECS["mesh_fast"],
+                                          after=remesh_ms)
+    ratio = abs(res["n_triangles"] - dense["n_triangles"]) / dense["n_triangles"]
+    print(f"mesh_fast path: {res['n_triangles']} triangles against the dense path's "
+          f"{dense['n_triangles']} ({100 * ratio:.2f} % apart); mesh {stage(res, 'mesh'):.3f} "
+          f"ms and final mesh {stage(res, 'final_mesh'):.3f} ms a call against the dense "
+          f"path's {stage(dense, 'mesh'):.3f} and {stage(dense, 'final_mesh'):.3f} ms",
+          flush=True)
+    for label, r in (("mesh_fast", res), ("dense", dense)):
+        m = r["timing"]["mesh"]
+        print(f"mesh_fast path: the {label} path's cadence mesh: {m['count']} calls, mean "
+              f"{m['mean_ms']:.3f} ms, the slowest {m['max_ms']:.3f} ms, the others' mean "
+              f"{(1e3 * m['total_s'] - m['max_ms']) / max(m['count'] - 1, 1):.3f} ms",
+              flush=True)
+    rm = res["remesh_ms"]
+    print(f"mesh_fast path: the final map re-meshed whole, alternated: full decode "
+          f"{[round(x, 3) for x in rm[False]]} ms ({res['remesh_tris'][False]} triangles), "
+          f"fast decode {[round(x, 3) for x in rm[True]]} ms ({res['remesh_tris'][True]} "
+          f"triangles) ({torch.cuda.get_device_name(0)})", flush=True)
+    if not ratio < 0.2:
+        fail(f"mesh_fast: triangle count {res['n_triangles']} not within 20 % of "
+             f"{dense['n_triangles']}")
+
+    paths["async"], res = fusion_path(dev, "async", OPTION_EXECS["async"], streams=True)
+    ref = refinements("async", res)
+    am = res["async_mesh"]
+    print(f"async path: extractions started {am['started']}, returned {am['returned']}; "
+          f"refinements dispatched {len(ref)}, merged {res['refine_merged']}; track "
+          f"{stage(res, 'track'):.3f} ms a frame against the dense path's "
+          f"{stage(dense, 'track'):.3f}", flush=True)
+    if min(am["started"], am["returned"], len(ref), res["refine_merged"]) <= 0:
+        fail(f"async: extractions {am}, refinements dispatched {len(ref)}, merged "
+             f"{res['refine_merged']}")
+    # the workers' streams: this repo's kernels off the main stream, without
+    # the photometric kernel (the tracker's warm-up stream has it)
+    for sid, st in sorted(res["streams"].items(), key=lambda kv: -kv[1]["kernels"]):
+        role = ("main" if st["main"] else "worker" if st["repo_kernels"]
+                and "photometric_hg" not in st["repo_kernels"] else "other")
+        print(f"async path: stream {sid} ({role}): {st['kernels']} kernels, busy "
+              f"{st['busy_ms']:.3f} ms, overlapping main-stream kernels "
+              f"{st['overlap_ms']:.3f} ms, this repo's kernels {st['repo_kernels']}",
+              flush=True)
+
+    paths["hash_box"], res = fusion_path(dev, "hash_box", OPTION_EXECS["hash_box"],
+                                         max_drop=HASH_DROP_MAX)
+    drop = res["box_filter_drop_frac"]
+    fr = SyntheticSequence(n_frames=100, width=640, height=480, device=dev).render_frame(10)
+    c = fr.calib
+    pre_ms = {exact: device_ms(lambda: preprocess_frame(
+        fr.rgb, fr.depth, c.fx, c.fy, c.cx, c.cy, 0.5, 5.0, 40960, box_filter_exact=exact))
+        for exact in (True, False)}
+    print(f"hash_box path: box-filter drop mean {drop['mean']:.6f}, max {drop['max']:.6f} "
+          f"(at most {HASH_DROP_MAX}); preprocess_frame on a 640x480 frame "
+          f"{pre_ms[False]:.4f} ms on the device with the hash filter, {pre_ms[True]:.4f} "
+          f"with the exact one", flush=True)
 
 
 def lrkt_export(dev) -> str:
@@ -1473,7 +1762,9 @@ def check_launches(paths: dict):
     fusion = ("decoder_forward", "decoder_forward_grad", "encoder_forward",
               "stencil_frontend", "photometric_hg", "gn_step")
     required = {
-        "dense": fusion, "dense_det": fusion, "lrkt": fusion,
+        "dense": fusion, "dense_det": fusion, "lrkt": fusion, "mesh_fast": fusion,
+        "refine": fusion + ("decoder_vjp",), "async": fusion + ("decoder_vjp",),
+        "hash_box": fusion + ("select_gather",),
         "fast": fusion + ("select_gather",), "lrkt_fast": fusion + ("select_gather",),
         "scannet_scale": fusion + ("select_gather",),
         "probe": ("row_gather", "row_gather_c1", "lane_gather"),
@@ -1488,8 +1779,8 @@ def check_launches(paths: dict):
                 fail(f"kernel {name} was not launched on the {label} path")
     # the warps gather inside the photometric kernel and the selection in
     # select_gather: the row gather runs on the probe only
-    for label in ("dense", "fast", "dense_det", "fpc19", "lrkt", "lrkt_fast",
-                  "scannet_scale"):
+    for label in ("dense", "fast", "dense_det", "fpc19", "refine", "mesh_fast", "async",
+                  "hash_box", "lrkt", "lrkt_fast", "scannet_scale"):
         if any(paths[label]["row_gather_by_width"].values()):
             fail(f"row_gather ran on the {label} path: {paths[label]['row_gather_by_width']}")
     for c in (1, 2, 4):
@@ -1526,8 +1817,9 @@ def main() -> int:
     ptxas_report(report)
     tensor_cores = tensor_core_counts()
     rows = kernel_phase(dev)
+    render_check(dev)
     paths = {}
-    paths["dense"], _ = fusion_path(dev, "dense")
+    paths["dense"], dense_res = fusion_path(dev, "dense")
     paths["fast"], _ = fusion_path(dev, "fast", FAST_EXEC)
     # 19 tracking-only frames fill the 20-frame cadence; held against the
     # dense path run again, both under deterministic algorithms: otherwise
@@ -1541,6 +1833,7 @@ def main() -> int:
         if not abs(block[key] - dense[key]) <= 3e-4:
             fail(f"frames_per_call = 19: {key} {block[key]} m against the per-frame "
                  f"run's {dense[key]} m")
+    option_paths(dev, paths, dense_res)
     paths["probe"], _ = probe_path("gather", gather_probe)
     paths["frontend_probe"], _ = probe_path("frontend", preprocess_probe)
     # the three configs of the data layer, each as its file gives it; the
@@ -1567,13 +1860,15 @@ def main() -> int:
             "max_abs_err": r["err"], "tolerance": r["tol"],
             "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "bound_peak": ("tf32 tensor cores, 3 passes" if r["name"] in tensor_cores
-                           else "f32 CUDA cores" if r["bound"][1] == "operations" else "HBM"),
-            **({"bound_f32_ms": r["bound_f32"][0],
-                "tensor_core_instructions": tensor_cores[r["name"]]}
+            "bound_peak": r.get("bound_peak") or (
+                "tf32 tensor cores, 3 passes" if r["name"] in tensor_cores
+                else "f32 CUDA cores" if r["bound"][1] == "operations" else "HBM"),
+            **({"bound_f32_ms": r["bound_f32"][0]} if "bound_f32" in r else {}),
+            **({"tensor_core_instructions": tensor_cores[r["name"]]}
                if r["name"] in tensor_cores else {}),
             "library_ms": r.get("library_ms"), "shape": r["shape"],
-            **{k: r[k] for k in ("grad_err", "grad_tol", "grad_within_tol", "count_err",
+            **{k: r[k] for k in ("grad_err", "grad_tol", "grad_within_tol", "row_rel_err",
+                                 "row_tol", "row_within_tol", "count_err",
                                  "normal_agree_frac", "mask_diff", "pts_equal",
                                  "off_mask_zero", "repeat_equal", "ms_again",
                                  "selection_matches_cpu", "recorded_steps", "cases")

@@ -521,6 +521,225 @@ int launch_encoder(const float* x, const float* wts, int n, float* out, void* st
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Decoder VJP: dx = g^T d[sdf, std] / dx, f32 on the CUDA cores.
+// ---------------------------------------------------------------------------
+//
+// No Pallas source: the counterpart of XLA's reverse-mode autodiff through
+// apply_decoder inside refine_latents (nerf_fusion_tpu/system/refine.py:79-101).
+// A block takes a tile of 64 rows: it recomputes the forward pass into two
+// ping-pong activation buffers in shared memory, keeping each hidden layer's
+// ReLU mask as bits, turns the heads into the gradient of the last hidden
+// activation (d sdf brings (1 - sdf^2) w4, d std brings 0.5 sigmoid(unc) wu),
+// and runs the reverse pass through lin3 (split into the h branch and the
+// re-fed input), lin2, lin1 and lin0 with the transposed matrices.  Each
+// product is a register-tiled loop: a thread holds RT rows x 4 columns, reads
+// one float4 of the (K, N) row-major matrix per k from global memory (L2
+// holds the 396 KB of weights; no copy in shared memory: the forward
+// kernel's packed weights already fill it) and the rows' activations from
+// shared memory (one address per warp).  Operations bound it: about 2 x
+// 98.8 kFLOP a row on the f32 CUDA cores.
+
+constexpr int kVjpRows = 64;
+constexpr int kVjpThreads = 256;
+constexpr int kVjpLd = 132;   // activation row stride in shared memory (floats)
+constexpr int kVjpLdX = 36;   // input row stride
+
+// Packed weights (ops/mlp.py pack_decoder_vjp): lin0..lin3 as row-major (in,
+// out) matrices, then their transposes, then the hidden biases, lin4 and unc.
+struct VjpLayout {
+  static constexpr int kW0 = 0;
+  static constexpr int kW1 = kW0 + kIn * kH;
+  static constexpr int kW2 = kW1 + kH * kH;
+  static constexpr int kW3 = kW2 + kH * kH2;
+  static constexpr int kT0 = kW3 + kH * kH;    // (128, 32)
+  static constexpr int kT1 = kT0 + kH * kIn;   // (128, 128)
+  static constexpr int kT2 = kT1 + kH * kH;    // (96, 128)
+  static constexpr int kT3 = kT2 + kH2 * kH;   // (128, 128)
+  static constexpr int kB0 = kT3 + kH * kH;
+  static constexpr int kB1 = kB0 + kH;
+  static constexpr int kB2 = kB1 + kH;
+  static constexpr int kB3 = kB2 + kH2;
+  static constexpr int kW4 = kB3 + kH;
+  static constexpr int kB4 = kW4 + kH;
+  static constexpr int kWu = kB4 + 1;
+  static constexpr int kBu = kWu + kH;
+  static constexpr int kSize = kBu + 1;
+};
+using VL = VjpLayout;
+static_assert(VL::kSize == 99042, "decoder vjp packing");
+static_assert(VL::kB0 % 4 == 0 && VL::kB1 % 4 == 0 && VL::kB2 % 4 == 0 &&
+                  VL::kB3 % 4 == 0,
+              "16-byte bias loads");
+// A, B activations; X the input (in the reverse pass the re-fed input's
+// gradient); coef the heads' two coefficients a row; 4 x 4 mask words a row.
+constexpr int kVjpSmem =
+    (2 * kVjpRows * kVjpLd + kVjpRows * kVjpLdX + 2 * kVjpRows) * sizeof(float) +
+    4 * kVjpRows * 4 * sizeof(uint32_t);
+
+// For each item of RT rows x 4 columns of out = in W (in: kVjpRows x K in
+// shared memory, row stride ldi; W: (K, N) row-major in global memory):
+// epi(row, column, the four sums).
+template <int K, int N, int RT, typename Epi>
+__device__ __forceinline__ void vjp_gemm(const float* in, int ldi,
+                                         const float* __restrict__ w, Epi epi) {
+  constexpr int CG = N / 4;
+  constexpr int kItems = (kVjpRows / RT) * CG;
+  static_assert(N % 4 == 0 && kVjpRows % RT == 0, "vjp_gemm tiling");
+  for (int item = threadIdx.x; item < kItems; item += kVjpThreads) {
+    const int c = 4 * (item % CG);
+    const int r0 = (item / CG) * RT;
+    float acc[RT][4];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    const float4* wp = reinterpret_cast<const float4*>(w + c);
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      const float4 wv = __ldg(wp + k * CG);
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const float a = in[(r0 + i) * ldi + k];
+        acc[i][0] = fmaf(a, wv.x, acc[i][0]);
+        acc[i][1] = fmaf(a, wv.y, acc[i][1]);
+        acc[i][2] = fmaf(a, wv.z, acc[i][2]);
+        acc[i][3] = fmaf(a, wv.w, acc[i][3]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+      epi(r0 + i, c, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+  }
+}
+
+__device__ __forceinline__ float4 masked(float4 v, uint32_t bits) {
+  return make_float4(bits & 1u ? v.x : 0.f, bits & 2u ? v.y : 0.f, bits & 4u ? v.z : 0.f,
+                     bits & 8u ? v.w : 0.f);
+}
+
+__global__ void __launch_bounds__(kVjpThreads, 2)
+    decoder_vjp_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                       const float* __restrict__ wts, int n, float* __restrict__ dx) {
+  extern __shared__ __align__(16) float sv[];
+  float* A = sv;
+  float* B = A + kVjpRows * kVjpLd;
+  float* X = B + kVjpRows * kVjpLd;
+  float* coef = X + kVjpRows * kVjpLdX;
+  uint32_t* masks = reinterpret_cast<uint32_t*>(coef + 2 * kVjpRows);  // [layer][row][4]
+  const int row0 = blockIdx.x * kVjpRows;
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i < kVjpRows * kIn; i += kVjpThreads) {
+    const int r = i / kIn, c = i % kIn;
+    X[r * kVjpLdX + c] = row0 + r < n ? __ldg(x + (size_t)(row0 + r) * kIn + c) : 0.f;
+  }
+  for (int i = tid; i < 4 * kVjpRows * 4; i += kVjpThreads) masks[i] = 0u;
+  __syncthreads();
+
+  // out = relu(v + bias), its mask bits into layer `layer`'s words.
+  auto relu_into = [&](float* out, int bias, int layer) {
+    uint32_t* m = masks + layer * kVjpRows * 4;
+    return [=](int r, int c, float4 v) {
+      const float4 b = __ldg(reinterpret_cast<const float4*>(wts + bias + c));
+      v.x += b.x;
+      v.y += b.y;
+      v.z += b.z;
+      v.w += b.w;
+      const uint32_t bits = (v.x > 0.f ? 1u : 0u) | (v.y > 0.f ? 2u : 0u) |
+                            (v.z > 0.f ? 4u : 0u) | (v.w > 0.f ? 8u : 0u);
+      *reinterpret_cast<float4*>(out + r * kVjpLd + c) = masked(v, bits);
+      if (bits) atomicOr(m + r * 4 + (c >> 5), bits << (c & 31));
+    };
+  };
+  auto mask_bits = [&](int layer, int r, int c) {
+    return (masks[(layer * kVjpRows + r) * 4 + (c >> 5)] >> (c & 31)) & 15u;
+  };
+
+  // Forward pass.
+  vjp_gemm<kIn, kH, 8>(X, kVjpLdX, wts + VL::kW0, relu_into(A, VL::kB0, 0));
+  __syncthreads();
+  vjp_gemm<kH, kH, 8>(A, kVjpLd, wts + VL::kW1, relu_into(B, VL::kB1, 1));
+  __syncthreads();
+  vjp_gemm<kH, kH2, 8>(B, kVjpLd, wts + VL::kW2, relu_into(A, VL::kB2, 2));
+  for (int i = tid; i < kVjpRows * kIn; i += kVjpThreads) {  // latent_in at lin3
+    const int r = i / kIn, c = i % kIn;
+    A[r * kVjpLd + kH2 + c] = X[r * kVjpLdX + c];
+  }
+  __syncthreads();
+  vjp_gemm<kH, kH, 8>(A, kVjpLd, wts + VL::kW3, relu_into(B, VL::kB3, 3));
+  __syncthreads();
+
+  // Heads: four threads a row, 32 products each.
+  {
+    const int r = tid >> 2, q = tid & 3;
+    float s4 = 0.f, su = 0.f;
+#pragma unroll 8
+    for (int k = 32 * q; k < 32 * q + 32; ++k) {
+      const float h = B[r * kVjpLd + k];
+      s4 = fmaf(h, __ldg(wts + VL::kW4 + k), s4);
+      su = fmaf(h, __ldg(wts + VL::kWu + k), su);
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      s4 += __shfl_xor_sync(0xffffffffu, s4, o);
+      su += __shfl_xor_sync(0xffffffffu, su, o);
+    }
+    if (q == 0) {
+      const int row = row0 + r;
+      const float g0 = row < n ? __ldg(g + 2 * (size_t)row) : 0.f;
+      const float g1 = row < n ? __ldg(g + 2 * (size_t)row + 1) : 0.f;
+      const float sdf = tanhf(s4 + __ldg(wts + VL::kB4));
+      const float sig = 1.f / (1.f + expf(-(su + __ldg(wts + VL::kBu))));
+      coef[2 * r] = g0 * (1.f - sdf * sdf);
+      coef[2 * r + 1] = g1 * (0.5f * sig);
+    }
+  }
+  __syncthreads();
+
+  // Reverse pass.  d pre-activation of lin3's output:
+  for (int i = tid; i < kVjpRows * kH; i += kVjpThreads) {
+    const int r = i / kH, j = i % kH;
+    const float d = coef[2 * r] * __ldg(wts + VL::kW4 + j) +
+                    coef[2 * r + 1] * __ldg(wts + VL::kWu + j);
+    A[r * kVjpLd + j] = (mask_bits(3, r, j) & 1u) ? d : 0.f;
+  }
+  __syncthreads();
+  // through lin3: the h branch (masked by lin2's ReLU) and the re-fed input
+  vjp_gemm<kH, kH, 8>(A, kVjpLd, wts + VL::kT3, [&](int r, int c, float4 v) {
+    if (c < kH2)
+      *reinterpret_cast<float4*>(B + r * kVjpLd + c) = masked(v, mask_bits(2, r, c));
+    else
+      *reinterpret_cast<float4*>(X + r * kVjpLdX + c - kH2) = v;
+  });
+  __syncthreads();
+  vjp_gemm<kH2, kH, 8>(B, kVjpLd, wts + VL::kT2, [&](int r, int c, float4 v) {
+    *reinterpret_cast<float4*>(A + r * kVjpLd + c) = masked(v, mask_bits(1, r, c));
+  });
+  __syncthreads();
+  vjp_gemm<kH, kH, 8>(A, kVjpLd, wts + VL::kT1, [&](int r, int c, float4 v) {
+    *reinterpret_cast<float4*>(B + r * kVjpLd + c) = masked(v, mask_bits(0, r, c));
+  });
+  __syncthreads();
+  vjp_gemm<kH, kIn, 2>(B, kVjpLd, wts + VL::kT0, [&](int r, int c, float4 v) {
+    const int row = row0 + r;
+    if (row >= n) return;
+    const float4 xr = *reinterpret_cast<const float4*>(X + r * kVjpLdX + c);
+    *reinterpret_cast<float4*>(dx + (size_t)row * kIn + c) =
+        make_float4(v.x + xr.x, v.y + xr.y, v.z + xr.z, v.w + xr.w);
+  });
+}
+
+int launch_decoder_vjp(const float* x, const float* g, const float* wts, int n, float* dx,
+                       void* stream) {
+  if (n <= 0) return 0;
+  static int sms = 0;
+  const cudaError_t e = prepare(decoder_vjp_kernel, kVjpSmem, sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (n + kVjpRows - 1) / kVjpRows;
+  decoder_vjp_kernel<<<blocks, kVjpThreads, kVjpSmem, static_cast<cudaStream_t>(stream)>>>(
+      x, g, wts, n, dx);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -541,6 +760,13 @@ int decoder_forward_grad(const float* x, const float* wts, int n, float* out,
 int encoder_forward(const float* x, const float* wts, int n, float* out,
                     void* stream) {
   return launch_encoder(x, wts, n, out, stream);
+}
+
+// x (n, 32) f32, g (n, 2) upstream gradient of [sdf, std], wts packed for the
+// VJP (99,042 f32, 16-byte aligned) -> dx (n, 32).
+int decoder_vjp(const float* x, const float* g, const float* wts, int n, float* dx,
+                void* stream) {
+  return launch_decoder_vjp(x, g, wts, n, dx, stream);
 }
 
 }  // extern "C"

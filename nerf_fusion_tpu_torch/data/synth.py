@@ -6,7 +6,8 @@ textured scene rendered along a known trajectory, so the whole loop
 hermetically.  Two scenes: "room" (floor, two walls, a sphere, a box; a
 smooth orbit) and "large" (an 8x8 m two-room apartment; a figure-eight
 walk through the doorway).  Frames are rendered on the sequence's device
-with a 96-step sphere trace.
+with a 96-step sphere trace; on the card, iterating the sequence renders
+``RENDER_BATCH`` frames in each call.
 """
 
 from __future__ import annotations
@@ -83,18 +84,28 @@ def _albedo(p: torch.Tensor) -> torch.Tensor:
     return torch.clamp(base, 0.05, 1.0)
 
 
+RENDER_BATCH = 8      # frames a render call when the sequence is iterated on the card
+
+
 def _render(R, t, fx, fy, cx, cy, H: int, W: int, scene_sdf=scene_sdf):
-    """Sphere-trace one frame of the scene whose SDF is ``scene_sdf``.
-    R, t: camera-to-world.  Returns (rgb, depth)."""
+    """Sphere-trace the scene whose SDF is ``scene_sdf``.  R, t:
+    camera-to-world, (3, 3) and (3,) for one frame, or (B, 3, 3) and (B, 3)
+    for B frames in one pass (each kernel over all B, the products frame by
+    frame, so each frame is bitwise its own render).  Returns (rgb, depth),
+    with a leading B for a batch."""
     dev = R.device
     u = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
     v = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
     d_cam = torch.stack([(u - cx) / fx, (v - cy) / fy, torch.ones_like(u)], -1)
     inv_norm = 1.0 / torch.linalg.vector_norm(d_cam, dim=-1, keepdim=True)
     d_cam_n = d_cam * inv_norm
-    d_world = d_cam_n @ R.T
-    origin = t[None, None, :]
-    t_ray = torch.full((H, W), 0.05, dtype=torch.float32, device=dev)
+    if R.dim() == 2:
+        d_world = d_cam_n @ R.T
+        origin = t[None, None, :]
+    else:
+        d_world = torch.stack([d_cam_n @ r.T for r in R])
+        origin = t[:, None, None, :]
+    t_ray = torch.full(d_world.shape[:-1], 0.05, dtype=torch.float32, device=dev)
     for _ in range(96):
         s = scene_sdf(origin + t_ray[..., None] * d_world)
         t_ray = t_ray + torch.clamp(s, 0.0, 0.4)
@@ -116,7 +127,8 @@ def _render(R, t, fx, fy, cx, cy, H: int, W: int, scene_sdf=scene_sdf):
     n = grad / torch.clamp_min(torch.linalg.vector_norm(grad, dim=-1, keepdim=True), 1e-9)
     light = p_hit.new_tensor([0.4, 0.8, 0.45])
     light = light / torch.linalg.vector_norm(light)
-    shade = 0.35 + 0.65 * torch.clamp_min(n @ light, 0.0)
+    lit = n @ light if R.dim() == 2 else torch.stack([f @ light for f in n])
+    shade = 0.35 + 0.65 * torch.clamp_min(lit, 0.0)
     rgb = _albedo(p_hit) * shade[..., None]
     rgb = torch.where(hit[..., None], rgb, torch.zeros_like(rgb))
     return rgb, depth
@@ -168,6 +180,7 @@ class SyntheticSequence(RGBDSequence):
         self.first_iso = self._poses[0]
         # the analytic SDF of the rendered scene: an exact mesh-quality oracle
         self.scene_sdf = SCENES[scene]
+        self._ahead = {}
 
     def __len__(self):
         return len(self._poses)
@@ -185,9 +198,35 @@ class SyntheticSequence(RGBDSequence):
         frame.calib = self.calib
         return frame
 
+    def _render_ahead(self, idx: int) -> FrameData:
+        """Frame ``idx`` from a batch render of ``RENDER_BATCH`` frames from
+        it on (the card: the sphere trace launches a few thousand small
+        kernels a frame, about 8000 in the large scene, and a batch launches
+        them once for all its frames); bitwise ``render_frame(idx)``."""
+        if idx not in self._ahead:
+            ids = range(idx, min(idx + RENDER_BATCH, len(self)))
+            R = torch.as_tensor(np.stack([self._poses[i].q.rotation_matrix for i in ids]),
+                                dtype=torch.float32, device=self.device)
+            t = torch.as_tensor(np.stack([self._poses[i].t for i in ids]),
+                                dtype=torch.float32, device=self.device)
+            c = self.calib
+            rgb, depth = _render(R, t, c.fx, c.fy, c.cx, c.cy, self.H, self.W,
+                                 self.scene_sdf)
+            self._ahead = {i: (rgb[k], depth[k]) for k, i in enumerate(ids)}
+        rgb, depth = self._ahead.pop(idx)
+        frame = FrameData()
+        frame.rgb = rgb
+        frame.depth = depth
+        frame.gt_pose = self._poses[idx] if self.gt_trajectory is not None else None
+        frame.calib = self.calib
+        return frame
+
     def __next__(self) -> FrameData:
         if self.frame_id >= len(self):
             raise StopIteration
-        frame = self.render_frame(self.frame_id)
+        if self.device.type == "cuda":
+            frame = self._render_ahead(self.frame_id)
+        else:
+            frame = self.render_frame(self.frame_id)
         self.frame_id += 1
         return frame

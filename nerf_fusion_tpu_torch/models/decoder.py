@@ -7,7 +7,9 @@ entering the last layer, and ``sdf = tanh(lin4(h))``.  Weight-norm is
 folded into plain (in, out) matrices when the module is built; the forward
 pass runs the hand-written CUDA kernel (``ops.mlp``) on the card and its
 plain version on the CPU; ``ops.mlp.decoder_forward_grad`` on the packed
-weights adds the input gradient (``system.map.get_sdf``).  Matrix products are f32, or on the card the
+weights adds the input gradient (``system.map.get_sdf``), and
+``Decoder.differentiable`` runs under autograd with the ``decoder_vjp``
+kernel as its backward (``system.refine``).  Matrix products are f32, or on the card the
 3xTF32 split, which is as exact (not one-pass TF32): the tracker's
 Jacobians need those digits.
 
@@ -43,6 +45,7 @@ class Decoder(nn.Module):
             self.register_buffer(f"w{i}", w.contiguous())
             self.register_buffer(f"b{i}", b.contiguous())
         self.register_buffer("packed", mlp.pack_decoder(mats))
+        self.register_buffer("packed_vjp", mlp.pack_decoder_vjp(mats))
 
     @property
     def mats(self):
@@ -52,6 +55,12 @@ class Decoder(nn.Module):
         """(N, 32) -> (sdf (N, 1), std (N, 1))."""
         out = mlp.decoder_forward(net_in.contiguous(), self.packed, self.mats)
         return out[:, 0:1], out[:, 1:2]
+
+    def differentiable(self, net_in: torch.Tensor) -> torch.Tensor:
+        """(N, 32) -> (N, 2) [sdf, std] under autograd in the input
+        (``mlp.DecoderFn``: the backward is the ``decoder_vjp`` kernel)."""
+        return mlp.DecoderFn.apply(net_in.contiguous(), self.packed, self.packed_vjp,
+                                   self.mats)
 
 
 class DecoderConfig:

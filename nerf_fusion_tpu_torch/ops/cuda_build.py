@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -35,6 +36,7 @@ SIGNATURES = {
         "decoder_forward": (_P, _P, _I, _P, _P),
         "decoder_forward_grad": (_P, _P, _I, _P, _P, _P),
         "encoder_forward": (_P, _P, _I, _P, _P),
+        "decoder_vjp": (_P, _P, _P, _I, _P, _P),
     },
     "stencil": {
         "stencil_normals": (_P, _P, _I, _I, _F, _P, _P, _P),
@@ -58,6 +60,10 @@ SIGNATURES = {
 }
 
 _LIBS: dict = {}
+# Guards the wrappers' launch counters: a worker thread (the async mesher,
+# the async refiner, autograd's device thread) launches beside the main one,
+# and a bare ``+= 1`` from two threads can lose a count.
+COUNT_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -136,6 +142,16 @@ def on_cpu(what: str, *tensors) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
     return False
+
+
+def count_launch(fn, key=None):
+    """One launch of ``fn``'s kernel: ``fn.launches += 1`` (or
+    ``fn.launches_by_c[key] += 1``) under ``COUNT_LOCK``."""
+    with COUNT_LOCK:
+        if key is None:
+            fn.launches += 1
+        else:
+            fn.launches_by_c[key] += 1
 
 
 def check(status: int, what: str):

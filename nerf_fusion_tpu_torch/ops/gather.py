@@ -94,7 +94,7 @@ def select_gather(vals: torch.Tensor, idx: torch.Tensor, kk: int, w: int, planes
             vals.data_ptr(), idx.data_ptr(), kk, w, n, *(p.data_ptr() for p in planes),
             *(t.data_ptr() for t in out), valid.data_ptr(), cuda_build.stream_ptr(dev)),
             what)
-        select_gather.launches += 1
+        cuda_build.count_launch(select_gather)
     return out + (valid,)
 
 
@@ -128,7 +128,7 @@ def row_gather(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     cuda_build.check(lib.row_gather(rows.data_ptr(), N, C, idx.data_ptr(), M,
                                     out.data_ptr(), cuda_build.stream_ptr(rows.device)),
                      "row_gather")
-    row_gather.launches_by_c[C] += 1
+    cuda_build.count_launch(row_gather, C)
     return out
 
 
@@ -153,7 +153,7 @@ def lane_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     cuda_build.check(lib.lane_gather(src.data_ptr(), idx.data_ptr(), H, B,
                                      out.data_ptr(), cuda_build.stream_ptr(src.device)),
                      "lane_gather")
-    lane_gather.launches += 1
+    cuda_build.count_launch(lane_gather)
     return out
 
 

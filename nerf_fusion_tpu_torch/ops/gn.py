@@ -129,7 +129,7 @@ def gn_step(H, g, energy, state: GNState, group: int, n_iters: int):
                                  state.pose.data_ptr(), state.ints.data_ptr(),
                                  state.done.data_ptr(), state.iters.data_ptr(), int(group),
                                  int(n_iters), cuda_build.stream_ptr(H.device)), what)
-    gn_step.launches += 1
+    cuda_build.count_launch(gn_step)
 
 
 gn_step.launches = 0

@@ -251,6 +251,58 @@ def box_filter_points_exact(pts: torch.Tensor, normals: torch.Tensor,
     return out_p, out_n, acc[:, 6:9] / c, mask, drop_frac
 
 
+def box_filter_points(pts: torch.Tensor, normals: torch.Tensor, valid: torch.Tensor,
+                      voxel_size: float, capacity: int, extent: float = 8.0,
+                      table_bits: int = 20, colors: torch.Tensor = None):
+    """Voxel-grid mean downsample through a hash table (the JAX package's
+    ``box_filter_points``, selected by ``preprocess.box_filter_exact: false``).
+
+    Cells hash into a 2^``table_bits`` table by the Knuth multiplier
+    ``int32(cell id * -1640531535)`` (wrapped to int32 explicitly); a
+    scatter-max takes the owner of each slot (``int32.min`` marks an empty
+    one) and the points of a cell that lost its slot to a collision are
+    dropped.  Cells come out in slot order (a cumsum of the occupied slots
+    ranks them), the order the tracker's point budget reads.  One
+    scatter-add of [points | normals | colors | 1] averages each cell.
+    ``drop_frac`` is the share of in-bounds points lost to collisions.
+    :return: (pts, normals, [colors,] mask (capacity,), drop_frac ()).
+    """
+    tbl = 1 << table_bits
+    empty = torch.iinfo(torch.int32).min
+    dev = pts.device
+    n_cells = int(2 * extent / voxel_size)
+    grid = torch.floor((pts + extent) / voxel_size).long()
+    inb = torch.all((grid >= 0) & (grid < n_cells), dim=-1) & valid
+    gid = _wrap_int32((grid[:, 0] * n_cells + grid[:, 1]) * n_cells + grid[:, 2])
+    h = torch.where(inb, _wrap_int32(gid * _MIX) & (tbl - 1), tbl)
+    winner = torch.full((tbl + 1,), empty, dtype=torch.int64, device=dev)
+    winner.scatter_reduce_(0, h, gid, reduce="amax")
+    hc = h.clamp_max(tbl - 1)
+    mine = inb & (winner[hc] == gid) & (h < tbl)
+    occ = winner[:tbl] > empty
+    rank = torch.cumsum(occ, 0) - 1
+    n_occ = occ.sum()
+    prank = rank[hc]
+    dest = torch.where(mine & (prank < capacity), prank, capacity)
+    parts = [pts, normals] + ([colors] if colors is not None else [])
+    ones = torch.ones((pts.shape[0], 1), dtype=pts.dtype, device=dev)
+    stacked = torch.cat(parts + [ones], dim=-1)
+    acc = torch.zeros((capacity + 1, stacked.shape[1]), dtype=pts.dtype, device=dev)
+    acc.index_add_(0, dest, stacked)
+    acc = acc[:capacity]
+    c = torch.clamp_min(acc[:, -1:], 1.0)
+    out_p = acc[:, 0:3] / c
+    out_n = acc[:, 3:6] / c
+    nn_ = torch.sqrt(torch.clamp_min(torch.sum(out_n * out_n, -1, keepdim=True), 1e-24))
+    out_n = out_n / nn_
+    mask = torch.arange(capacity, device=dev) < torch.clamp_max(n_occ, capacity)
+    n_inb = inb.sum().to(torch.float32)
+    drop_frac = (n_inb - mine.sum().to(torch.float32)) / torch.clamp_min(n_inb, 1.0)
+    if colors is None:
+        return out_p, out_n, mask, drop_frac
+    return out_p, out_n, acc[:, 6:9] / c, mask, drop_frac
+
+
 def intensity_depth_rows(intensity, depth):
     """(H, W) intensity and depth planes -> (H*W, 2) rows [intensity, depth],
     the source of the photometric warp's row gather."""

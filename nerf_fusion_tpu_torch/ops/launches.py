@@ -9,17 +9,27 @@ any wrapper.  So the tracker takes ``snapshot()`` before a capture, keeps
 ``add(..., -1)`` and adds them once per replay: the counters then hold the
 kernels that ran on the card.  ``counter_of`` names the counter of a
 kernel in a profiler trace, so that a trace can be held to the counters.
+
+The counters move under ``cuda_build.COUNT_LOCK``, so launches from worker
+threads (the async mesher and refiner) are never lost.  A capture diffs
+the counters of every thread, so a worker's launches must not fall inside
+one: a worker holds ``EXCLUSIVE`` for its whole job and the tracker takes
+it around each capture.
 """
 
 from __future__ import annotations
 
 import re
+import threading
 
-from . import gather, gn, mlp, photometric, stencil
+from . import cuda_build, gather, gn, mlp, photometric, stencil
+
+EXCLUSIVE = threading.RLock()
 
 _PLAIN = {
     "decoder_forward": mlp.decoder_forward,
     "decoder_forward_grad": mlp.decoder_forward_grad,
+    "decoder_vjp": mlp.decoder_vjp,
     "encoder_forward": mlp.encoder_forward,
     "stencil_count": stencil.neighbor_count,
     "stencil_normals": stencil.normals_stencil,
@@ -35,8 +45,10 @@ NAMES = tuple(_PLAIN) + tuple(ROW_GATHER)
 
 
 def snapshot() -> dict:
-    counts = {name: fn.launches for name, fn in _PLAIN.items()}
-    counts.update({name: gather.row_gather.launches_by_c[c] for name, c in ROW_GATHER.items()})
+    with cuda_build.COUNT_LOCK:
+        counts = {name: fn.launches for name, fn in _PLAIN.items()}
+        counts.update({name: gather.row_gather.launches_by_c[c]
+                       for name, c in ROW_GATHER.items()})
     return counts
 
 
@@ -45,21 +57,24 @@ def diff(after: dict, before: dict) -> dict:
 
 
 def add(counts: dict, times: int = 1):
-    for name, n in counts.items():
-        if name in ROW_GATHER:
-            gather.row_gather.launches_by_c[ROW_GATHER[name]] += times * n
-        else:
-            _PLAIN[name].launches += times * n
+    with cuda_build.COUNT_LOCK:
+        for name, n in counts.items():
+            if name in ROW_GATHER:
+                gather.row_gather.launches_by_c[ROW_GATHER[name]] += times * n
+            else:
+                _PLAIN[name].launches += times * n
 
 
 def reset():
-    for fn in _PLAIN.values():
-        fn.launches = 0
-    gather.reset_launches()
+    with cuda_build.COUNT_LOCK:
+        for fn in _PLAIN.values():
+            fn.launches = 0
+        gather.reset_launches()
 
 
 _KERNELS = (("decoder_kernel<false>", "decoder_forward"),
             ("decoder_kernel<true>", "decoder_forward_grad"),
+            ("decoder_vjp_kernel", "decoder_vjp"),
             ("encoder_kernel", "encoder_forward"),
             ("photometric_kernel", "photometric_hg"),
             ("gn_step_kernel", "gn_step"),

@@ -3,15 +3,18 @@
 Counterpart of the JAX package's ``ops/pallas_mlp.py``.  The kernels live
 in ``csrc/mlp.cu``; this module folds the weights, packs them in the
 kernels' layout (``pack_decoder``, ``pack_encoder``: the tensor cores'
-fragment order), and exposes three wrappers:
+fragment order), and exposes four wrappers:
 
   * ``decoder_forward``       (N, 32) -> (N, 2) [sdf, std]
   * ``decoder_forward_grad``  (N, 32) -> (N, 2), (N, 3) d sdf / d x[:, 29:32]
+  * ``decoder_vjp``           (N, 32), (N, 2) g -> (N, 32) g^T d[sdf, std] / dx
   * ``encoder_forward``       (N, 6)  -> (N, 29)
 
-A wrapper launches its kernel for a CUDA tensor (or raises) and takes the
-plain PyTorch version beside it only for a CPU tensor.  Each wrapper
-counts its kernel launches in ``<wrapper>.launches``.
+and ``DecoderFn``, the decoder as a ``torch.autograd.Function``: forward
+``decoder_forward``, backward ``decoder_vjp``.  A wrapper launches its
+kernel for a CUDA tensor (or raises) and takes the plain PyTorch version
+beside it only for a CPU tensor.  Each wrapper counts its kernel launches
+in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from . import cuda_build
 DECODER_IN = 32
 DECODER_LATENT = 29
 DECODER_PACKED = 49890
+DECODER_VJP_PACKED = 99042
 ENCODER_IN = 6
 ENCODER_OUT = 29
 ENCODER_PACKED = 27264
@@ -88,6 +92,17 @@ def pack_decoder(mats) -> torch.Tensor:
     for i, (w, b) in enumerate(mats):
         parts += [_fragments(w) if i < 4 else w.reshape(-1), b.reshape(-1)]
     return torch.cat(parts).contiguous()
+
+
+def pack_decoder_vjp(mats) -> torch.Tensor:
+    """Folded decoder [(W, b)] -> the VJP kernel's flat f32 buffer: the four
+    hidden layers' (in, out) matrices row-major, then their transposes,
+    then the four hidden biases, lin4's column, its bias, unc's column and
+    its bias."""
+    (w0, b0), (w1, b1), (w2, b2), (w3, b3), (w4, b4), (wu, bu) = mats
+    hidden = (w0, w1, w2, w3)
+    return torch.cat([w.reshape(-1) for w in hidden] + [w.T.reshape(-1) for w in hidden]
+                     + [b0, b1, b2, b3, w4.reshape(-1), b4, wu.reshape(-1), bu]).contiguous()
 
 
 ENCODER_CHUNK = 64      # columns of the 256-wide layer per chunk in the kernel
@@ -160,6 +175,30 @@ def decoder_forward_grad_plain(x: torch.Tensor, mats):
     return torch.cat([sdf, std], dim=1), grad
 
 
+def decoder_vjp_plain(x: torch.Tensor, g: torch.Tensor, mats) -> torch.Tensor:
+    """g (N, 2) [d sdf, d std] -> dx (N, 32), the kernel's algorithm: the
+    forward pass keeping each ReLU's mask, the heads' coefficients
+    (1 - sdf^2) and 0.5 sigmoid(unc), then the transposed products, lin3's
+    split into the h branch and the re-fed input."""
+    (w0, b0), (w1, b1), (w2, b2), (w3, b3), (w4, b4), (wu, bu) = mats
+    a = x @ w0 + b0
+    m0, h = a > 0, torch.relu(a)
+    a = h @ w1 + b1
+    m1, h = a > 0, torch.relu(a)
+    a = h @ w2 + b2
+    m2, h = a > 0, torch.relu(a)
+    a = torch.cat([h, x], dim=1) @ w3 + b3
+    m3, h = a > 0, torch.relu(a)
+    sdf = torch.tanh(h @ w4 + b4)
+    c4 = g[:, 0:1] * (1.0 - sdf * sdf)
+    cu = g[:, 1:2] * (0.5 * torch.sigmoid(h @ wu + bu))
+    d = torch.where(m3, c4 * w4[:, 0] + cu * wu[:, 0], 0.0) @ w3.T
+    d_refed, d = d[:, w2.shape[1]:], d[:, :w2.shape[1]]
+    d = torch.where(m2, d, 0.0) @ w2.T
+    d = torch.where(m1, d, 0.0) @ w1.T
+    return torch.where(m0, d, 0.0) @ w0.T + d_refed
+
+
 def encoder_forward_plain(x: torch.Tensor, mats) -> torch.Tensor:
     h = x
     for i, (w, b) in enumerate(mats):
@@ -173,8 +212,12 @@ def encoder_forward_plain(x: torch.Tensor, mats) -> torch.Tensor:
 # Wrappers.
 # ---------------------------------------------------------------------------
 
-def _check(x: torch.Tensor, width: int, packed: torch.Tensor, size: int, what: str):
-    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != width:
+def _check(x: torch.Tensor, width: int, packed: torch.Tensor, size: int, what: str,
+           f64_on_cpu: bool = False):
+    """``f64_on_cpu``: a float64 input on the CPU is taken too (the plain
+    version computes in the input's type, with ``mats`` of that type)."""
+    f64 = f64_on_cpu and x.device.type == "cpu" and x.dtype == torch.float64
+    if (x.dtype != torch.float32 and not f64) or x.dim() != 2 or x.shape[1] != width:
         raise ValueError(f"{what}: expected (N, {width}) float32, got "
                          f"{tuple(x.shape)} {x.dtype}")
     if not x.is_contiguous():
@@ -187,7 +230,7 @@ def _check(x: torch.Tensor, width: int, packed: torch.Tensor, size: int, what: s
 
 def decoder_forward(x: torch.Tensor, packed: torch.Tensor, mats) -> torch.Tensor:
     """Eval decoder (N, 32) -> (N, 2) [sdf, std]."""
-    _check(x, DECODER_IN, packed, DECODER_PACKED, "decoder_forward")
+    _check(x, DECODER_IN, packed, DECODER_PACKED, "decoder_forward", f64_on_cpu=True)
     if cuda_build.on_cpu("decoder_forward", x):
         return decoder_forward_plain(x, mats)
     out = torch.empty((x.shape[0], 2), dtype=torch.float32, device=x.device)
@@ -195,7 +238,7 @@ def decoder_forward(x: torch.Tensor, packed: torch.Tensor, mats) -> torch.Tensor
     cuda_build.check(lib.decoder_forward(
         x.data_ptr(), packed.data_ptr(), x.shape[0], out.data_ptr(),
         cuda_build.stream_ptr(x.device)), "decoder_forward")
-    decoder_forward.launches += 1
+    cuda_build.count_launch(decoder_forward)
     return out
 
 
@@ -210,7 +253,7 @@ def decoder_forward_grad(x: torch.Tensor, packed: torch.Tensor, mats):
     cuda_build.check(lib.decoder_forward_grad(
         x.data_ptr(), packed.data_ptr(), x.shape[0], out.data_ptr(),
         grad.data_ptr(), cuda_build.stream_ptr(x.device)), "decoder_forward_grad")
-    decoder_forward_grad.launches += 1
+    cuda_build.count_launch(decoder_forward_grad)
     return out, grad
 
 
@@ -224,10 +267,50 @@ def encoder_forward(x: torch.Tensor, packed: torch.Tensor, mats) -> torch.Tensor
     cuda_build.check(lib.encoder_forward(
         x.data_ptr(), packed.data_ptr(), x.shape[0], out.data_ptr(),
         cuda_build.stream_ptr(x.device)), "encoder_forward")
-    encoder_forward.launches += 1
+    cuda_build.count_launch(encoder_forward)
     return out
+
+
+def decoder_vjp(x: torch.Tensor, g: torch.Tensor, packed_vjp: torch.Tensor,
+                mats) -> torch.Tensor:
+    """The eval decoder's vector-Jacobian product in its input: x (N, 32)
+    and g (N, 2), the upstream gradient of [sdf, std] -> dx (N, 32)."""
+    _check(x, DECODER_IN, packed_vjp, DECODER_VJP_PACKED, "decoder_vjp", f64_on_cpu=True)
+    if g.dtype != x.dtype or tuple(g.shape) != (x.shape[0], 2) or not g.is_contiguous():
+        raise ValueError(f"decoder_vjp: g must be a contiguous ({x.shape[0]}, 2) {x.dtype} "
+                         f"tensor, got {tuple(g.shape)} {g.dtype}")
+    if cuda_build.on_cpu("decoder_vjp", x, g, packed_vjp):
+        return decoder_vjp_plain(x, g, mats)
+    if packed_vjp.data_ptr() % 16:
+        raise ValueError("decoder_vjp: packed weights must be 16-byte aligned")
+    dx = torch.empty_like(x)
+    lib = cuda_build.load("mlp")
+    cuda_build.check(lib.decoder_vjp(
+        x.data_ptr(), g.data_ptr(), packed_vjp.data_ptr(), x.shape[0], dx.data_ptr(),
+        cuda_build.stream_ptr(x.device)), "decoder_vjp")
+    cuda_build.count_launch(decoder_vjp)
+    return dx
+
+
+class DecoderFn(torch.autograd.Function):
+    """The eval decoder as a differentiable function of its input:
+    ``DecoderFn.apply(x, packed, packed_vjp, mats)`` -> (N, 2) [sdf, std];
+    forward ``decoder_forward``, backward ``decoder_vjp`` on the saved
+    input (the weights are constants)."""
+
+    @staticmethod
+    def forward(ctx, x, packed, packed_vjp, mats):
+        ctx.save_for_backward(x)
+        ctx.packed_vjp, ctx.mats = packed_vjp, mats
+        return decoder_forward(x, packed, mats)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return decoder_vjp(x, g.contiguous(), ctx.packed_vjp, ctx.mats), None, None, None
 
 
 decoder_forward.launches = 0
 decoder_forward_grad.launches = 0
+decoder_vjp.launches = 0
 encoder_forward.launches = 0

@@ -173,7 +173,7 @@ def photometric_hg(prev_rows, level, krkinv, kt, fx, fy, cx, cy, *,
             krkinv.data_ptr(), kt.data_ptr(), *scalars, float(min_grad_scale),
             float(max_depth_delta), *tail)
     cuda_build.check(status, what)
-    photometric_hg.launches += 1
+    cuda_build.count_launch(photometric_hg)
     return out[:36].view(6, 6), out[36:42], out[42], out[43]
 
 

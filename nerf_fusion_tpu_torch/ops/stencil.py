@@ -58,7 +58,7 @@ def normals_stencil(pts: torch.Tensor, valid: torch.Tensor, radius: float = 0.1)
         pts.data_ptr(), v8.data_ptr(), H, W, float(radius * radius),
         normals.data_ptr(), count.data_ptr(), cuda_build.stream_ptr(pts.device)),
         "stencil_normals")
-    normals_stencil.launches += 1
+    cuda_build.count_launch(normals_stencil)
     return normals, count
 
 
@@ -74,7 +74,7 @@ def neighbor_count(pts: torch.Tensor, valid: torch.Tensor, radius: float = 0.05)
     cuda_build.check(lib.stencil_count(
         pts.data_ptr(), v8.data_ptr(), H, W, float(radius * radius),
         count.data_ptr(), cuda_build.stream_ptr(pts.device)), "stencil_count")
-    neighbor_count.launches += 1
+    cuda_build.count_launch(neighbor_count)
     return count
 
 
@@ -143,7 +143,7 @@ def frontend_points(depth: torch.Tensor, fx, fy, cx, cy,
         float(normal_radius * normal_radius), float(normal_min_nb + 1),
         pts0.data_ptr(), normals.data_ptr(), valid.data_ptr(),
         cuda_build.stream_ptr(depth.device)), "stencil_frontend")
-    frontend_points.launches += 1
+    cuda_build.count_launch(frontend_points)
     return pts0, normals, valid
 
 

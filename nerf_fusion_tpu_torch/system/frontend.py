@@ -55,10 +55,13 @@ def preprocess_frame(rgb, depth, fx, fy, cx, cy,
                      subsample: float = 0.5, depth_scale=1.0,
                      outlier_radius: float = 0.05, outlier_min_nb: int = 16,
                      normal_radius: float = 0.1, normal_min_nb: int = 5,
-                     box_filter_size: float = 0.02) -> Preprocessed:
+                     box_filter_size: float = 0.02,
+                     box_filter_exact: bool = True) -> Preprocessed:
     """rgb (H, W, 3) float in [0, 1] or uint8; depth (H, W) float metres
     (NaN invalid) or uint16 counts at ``depth_scale`` per metre (0 invalid).
-    Both on the device the work should run on."""
+    Both on the device the work should run on.  ``box_filter_exact``: the
+    sort-based box filter, else the hash filter (``imgproc.box_filter_points``,
+    which drops the points of colliding cells)."""
     rgb, depth = frame_to_float(rgb, depth, depth_scale)
     intensity = torch.mean(rgb, dim=-1)
     depth = torch.where((depth < depth_cut_min) | (depth > depth_cut_max),
@@ -85,7 +88,9 @@ def preprocess_frame(rgb, depth, fx, fy, cx, cy,
     # Box-filter downsample into the fixed budget.
     step = {1.0: 1, 0.5: 2, 0.25: 4}[subsample]
     rgb_pc = rgb[::step, ::step]
-    bp, bn, bc, bm, drop = imgproc.box_filter_points_exact(
+    box_fn = imgproc.box_filter_points_exact if box_filter_exact \
+        else imgproc.box_filter_points
+    bp, bn, bc, bm, drop = box_fn(
         pts0.reshape(3, -1).T, normals.reshape(3, -1).T, valid.reshape(-1),
         voxel_size=box_filter_size, capacity=point_budget,
         colors=rgb_pc.reshape(-1, 3))

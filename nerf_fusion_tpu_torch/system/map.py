@@ -8,11 +8,14 @@ allocates unseen voxels with 6-neighbour dummies, runs the encoder kernel
 over the x8 corner pairs and fuses by a running mean; ``get_sdf`` runs the
 decoder kernel (with its input gradient when the query needs one).  The
 state tensors keep the JAX dtypes, so ``map.npz`` files interchange.
+``SparseVoxelMap.integrate_keyframe(do_optimize=True)`` refines the
+latents after fusing (``system.refine``), in place or on a worker.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 from pathlib import Path
 from typing import NamedTuple
 
@@ -21,6 +24,7 @@ import torch
 
 from ..ops import mlp
 from ..ops import voxel as vox
+from .worker import Worker
 
 
 class MapConfig(NamedTuple):
@@ -212,10 +216,15 @@ class SparseVoxelMap:
     """Host-side owner of the map state and the model.
 
     ``updated_slots`` (host) and ``_updated_dev`` (device) accumulate the
-    slots touched since the last meshing; the mesher consumes them.  The
-    state's tensors keep their storage for the map's life: integrating and
-    loading copy into them, so a CUDA graph captured on them (the tracker's)
-    reads the current map.  ``bound_min`` is ``cfg.bound_min`` on the device.
+    slots touched since the last meshing; the mesher consumes them, and
+    ``_upd_lock`` guards them (the async mesher takes them and feeds its
+    leftovers back from its thread).  The state's tensors keep their
+    storage for the map's life: integrating, refining and loading copy into
+    them, so a CUDA graph captured on them (the tracker's) reads the current
+    map.  ``bound_min`` is ``cfg.bound_min`` on the device.  Refinement
+    reads ``optim_n_iters`` (10) and ``code_reg_lambda`` (1e-2) from the
+    mapping args and draws its jitter from a generator seeded with the
+    mapping's ``seed`` + 1234; ``refine_log`` holds one entry a refinement.
     """
 
     def __init__(self, model, args, latent_dim: int, device):
@@ -227,12 +236,43 @@ class SparseVoxelMap:
                                          device=self.device)
         self.updated_slots = np.zeros((self.cfg.latent_capacity,), bool)
         self._updated_dev = None
+        self._upd_lock = threading.Lock()
+        self.refiner = None
+        self._worker = None
+        self._refine_gen = torch.Generator(device=self.device).manual_seed(
+            int(getattr(args, "seed", 0)) + 1234)
+        self.optim_n_iters = int(getattr(args, "optim_n_iters", 10))
+        self.code_reg_lambda = float(getattr(args, "code_reg_lambda", 1e-2))
+        self.refine_log = []
+        self.refine_merged = 0          # async results merged
         logging.info("Map size Nx=%d Ny=%d Nz=%d (capacity %d voxels)",
                      *self.cfg.n_xyz, self.cfg.latent_capacity)
 
-    def integrate_keyframe(self, points, normals, valid=None, pose=None):
+    @property
+    def worker(self) -> Worker:
+        """The background worker of this map's async mesher and refiner
+        (one thread, one CUDA stream), made at first use."""
+        if self._worker is None:
+            self._worker = Worker(self.device)
+        return self._worker
+
+    def _mark_updated(self, mask: torch.Tensor):
+        with self._upd_lock:
+            self._updated_dev = mask if self._updated_dev is None else self._updated_dev | mask
+
+    def integrate_keyframe(self, points, normals, valid=None, pose=None,
+                           do_optimize: bool = False, async_optimize: bool = False):
         """Fuse a frame.  ``pose``: camera-to-world as an Isometry or a
-        device (R, t); with it, points/normals may stay camera-frame."""
+        device (R, t); with it, points/normals may stay camera-frame.
+
+        A finished async refinement is merged first (the de-integration
+        merge).  With ``do_optimize`` the latents are refined after fusing
+        against this frame's points in the world frame: in place, or with
+        ``async_optimize`` dispatched to the worker unless it is busy.
+        Refined voxels are marked updated, for the mesher."""
+        from .refine import AsyncRefiner, StageClock, draw_jitter, merge_refined, \
+            refine_latents
+
         points = torch.as_tensor(points, dtype=torch.float32, device=self.device)
         normals = torch.as_tensor(normals, dtype=torch.float32, device=self.device)
         if valid is None:
@@ -245,13 +285,78 @@ class SparseVoxelMap:
                 pose_t = torch.as_tensor(pose.t, dtype=torch.float32, device=self.device)
             else:
                 pose_R, pose_t = pose
+        self._merge_async()
         state, updated = integrate_keyframe(
             self.state, self.cfg, self.model.encoder, points, normals, valid,
             pose_R, pose_t)
         self._assign(state)
-        self._updated_dev = (updated if self._updated_dev is None
-                             else self._updated_dev | updated)
+        self._mark_updated(updated)
+        if do_optimize and self.optim_n_iters > 0:
+            if async_optimize:
+                if self.refiner is None:
+                    self.refiner = AsyncRefiner(self.worker)
+                if self.refiner.busy():
+                    return updated
+                self._merge_async()         # one that ended since the merge above
+            if pose_R is not None:
+                points = points @ pose_R.T + pose_t[None, :]
+                normals = normals @ pose_R.T
+            kw = dict(n_iters=self.optim_n_iters, code_reg_lambda=self.code_reg_lambda)
+            log = {"async": bool(async_optimize)}
+            self.refine_log.append(log)
+            if async_optimize:
+                gt = draw_jitter(points.shape[0], self._refine_gen, self.device)
+                self.refiner.dispatch(self.state, self.cfg, self.model.decoder, points,
+                                      normals, valid, gt, log=log, **kw)
+            else:
+                clock = log["clock"] = StageClock(self.device)
+                clock.start()
+                res = refine_latents(self.state, self.cfg, self.model.decoder, points,
+                                     normals, valid, self._refine_gen, log=log, **kw)
+                clock.stop()
+                self._assign(merge_refined(self.state, res, deintegrate=False))
+                self._mark_updated(res.refined)
         return updated
+
+    def _merge_async(self):
+        """Merge a finished async refinement (the de-integration merge)."""
+        from .refine import merge_refined
+
+        res = None if self.refiner is None else self.refiner.collect()
+        if res is not None:
+            self._assign(merge_refined(self.state, res, deintegrate=True))
+            self._mark_updated(res.refined)
+            self.refine_merged += 1
+
+    def join_refiner(self):
+        """Wait for a running async refinement and merge it."""
+        if self.refiner is not None:
+            self.refiner.join()
+            self._merge_async()
+
+    def refine_summary(self) -> list:
+        """Host values of ``refine_log`` (syncs): per refinement its mode,
+        eligible and sampled voxels, ms and the mean NLL at the first and
+        last Adam step; a job still running is left out."""
+        out = []
+        for e in self.refine_log:
+            if "nll" not in e:
+                continue
+            nll = e["nll"].tolist()
+            out.append({"async": e["async"], "eligible": int(e["eligible"]),
+                        "sampled": int(e["sampled"]), "ms": e["clock"].ms(),
+                        "nll_first": nll[0] if nll else None,
+                        "nll_last": nll[-1] if nll else None})
+        return out
+
+    def sync_updated(self):
+        """Fold the device-side updated-voxel accumulator into the host set
+        (one copy to the host)."""
+        with self._upd_lock:
+            upd, self._updated_dev = self._updated_dev, None
+            if upd is not None:
+                self.updated_slots |= upd.cpu().numpy()
+            return self.updated_slots
 
     def check_overflow(self):
         """Raise if an integration found the map's capacities too small."""

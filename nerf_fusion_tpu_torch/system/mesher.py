@@ -1,4 +1,4 @@
-"""Incremental mesh extraction from the latent voxel map (sync path).
+"""Incremental mesh extraction from the latent voxel map.
 
 Counterpart of the JAX package's ``system/mesher.py`` for the fusion loop:
 
@@ -7,18 +7,36 @@ Counterpart of the JAX package's ``system/mesher.py`` for the fusion loop:
     512-voxel chunks; all-padding chunks are skipped) -> marching cubes.
     A batch that does not fit ``mesh_budget`` defers its remainder: the
     ``leftover`` slot mask feeds the next extraction.
+  * ``decode_cubes(fast=True)``: the reference's fast mode, a coarse r^3
+    decode, the align-corners trilinear upsample as one constant
+    (n_hi, n_lo) product, and a re-decode of the |sdf| < 0.05 samples up to
+    a fixed ``reeval_budget``, scattered back.
   * ``Mesher``: the host triangle cache keyed by owning voxel (every voxel
     of a re-meshed batch drops its stale triangles), deferred fetches
     (``materialize=False``), the deferral drain of materialising
-    extractions, the latent-reuse gate (``reuse_latent_eps``) and PLY
-    export.
+    extractions, the latent-reuse gate (``reuse_latent_eps``), the decode
+    mode of every extraction (``mesh_fast``), async extraction on a worker
+    thread and PLY export.
 
-The decoder runs in f32 whatever ``mesh_decode_precision`` says.
+The decoder runs in f32 whatever ``mesh_decode_precision`` says; the
+upsample product runs in float64 (JAX runs it at ``Precision.HIGHEST``),
+so no TF32 setting reaches it.
+
+Async extraction (``extract(extract_async=True)``): the JAX package's
+worker reads an immutable state; the port's map is written in place (the
+tracker's CUDA graphs read its storage), so the dispatch copies the state
+and takes the updated-slot mask on the caller's stream and submits the
+extraction to the map's ``Worker`` (``system/worker.py``: one thread and
+one CUDA stream, shared with the async refiner).  Its host reads
+synchronise the worker's stream; it drains one round (leftovers go back to
+the map's host set).  ``current_mesh`` and ``save_ply`` join it first.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -28,6 +46,7 @@ from ..ops import voxel as voxops
 from ..ops.marching_cubes import marching_cubes_sparse
 
 MESH_CHUNK = 512
+_TAKE = object()     # _dispatch_fused: take the updated mask from the map
 
 
 class MeshCache(NamedTuple):
@@ -59,23 +78,97 @@ def _sample_offsets(r: int) -> np.ndarray:
     return np.stack([X, Y, Z], -1).reshape(-1, 3).astype(np.float32)
 
 
-def decode_cubes(decoder, latents_b: torch.Tensor, r: int):
-    """(B, L) voxel latents -> (B, 2r, 2r, 2r) sdf and std sample grids
-    (full decode of every sample)."""
-    B, L = latents_b.shape
-    offs = torch.as_tensor(_sample_offsets(r), device=latents_b.device)
-    n_hi = offs.shape[0]
-    net_in = torch.cat([latents_b.repeat_interleave(n_hi, dim=0),
-                        offs.repeat(B, 1)], dim=1)
-    sdf, std = decoder(net_in)
+def _coarse_offsets(r: int) -> np.ndarray:
+    """r^3 lattice spanning the same extent (fast mode's low resolution)."""
+    a = -(r // 2) / r - 0.5
+    b = 1.0 + ((r - 1) // 2) / r - 0.5
+    ax = np.linspace(a, b, r)
+    X, Y, Z = np.meshgrid(ax, ax, ax, indexing="ij")
+    return np.stack([X, Y, Z], -1).reshape(-1, 3).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _upsample_blend_matrix(r: int) -> np.ndarray:
+    """((2r)^3, r^3) align-corners trilinear upsample as a constant matrix:
+    row j holds the <= 8 trilinear weights of high-resolution sample j over
+    the coarse lattice, the Kronecker cube of the 1-D resample matrix in
+    the row-major (x, y, z) order of the sample grids."""
+    j = np.arange(2 * r) * (r - 1) / (2 * r - 1)
+    lo = np.floor(j).astype(np.int64)
+    hi = np.minimum(lo + 1, r - 1)
+    f = (j - lo).astype(np.float32)
+    W1 = np.zeros((2 * r, r), np.float32)
+    W1[np.arange(2 * r), lo] += 1.0 - f
+    W1[np.arange(2 * r), hi] += f
+    T = np.einsum("ai,bj,ck->abcijk", W1, W1, W1)
+    return T.reshape((2 * r) ** 3, r ** 3)
+
+
+def _decode(decoder, lat: torch.Tensor, offs: torch.Tensor):
+    sdf, std = decoder(torch.cat([lat, offs], dim=1))
+    return sdf[:, 0], std[:, 0]
+
+
+def reeval_budget_for(r: int, fraction: float) -> int:
+    """Fast mode's re-decode budget for one ``MESH_CHUNK`` of voxels."""
+    return max(1024, int(MESH_CHUNK * (2 * r) ** 3 * fraction))
+
+
+def upsample_coarse(decoder, latents_b: torch.Tensor, r: int):
+    """Fast mode's first half: the coarse r^3 decode of each voxel and its
+    upsample to the (2r)^3 grid, ((B * (2r)^3,) sdf, std); the product in
+    float64, rounded once to f32."""
+    B = latents_b.shape[0]
+    n_lo = r ** 3
+    offs = torch.as_tensor(_coarse_offsets(r), device=latents_b.device)
+    sdf_lo, std_lo = _decode(decoder, latents_b.repeat_interleave(n_lo, dim=0),
+                             offs.repeat(B, 1))
+    T = torch.as_tensor(_upsample_blend_matrix(r), device=latents_b.device).double()
+
+    def up(v):
+        return (v.reshape(B, n_lo).double() @ T.T).to(torch.float32).reshape(-1)
+
+    return up(sdf_lo), up(std_lo)
+
+
+def decode_cubes(decoder, latents_b: torch.Tensor, r: int, fast: bool = False,
+                 valid_b: torch.Tensor = None, reeval_budget: int = 1024):
+    """(B, L) voxel latents -> (B, 2r, 2r, 2r) sdf and std sample grids.
+
+    ``fast``: the coarse decode and upsample (``upsample_coarse``), then the
+    samples with |sdf| < 0.05 of the ``valid_b`` voxels (all if None),
+    in order, up to ``reeval_budget`` of them, decoded again at full
+    resolution and scattered back; the rest keep their upsampled values.
+    Otherwise every sample is decoded."""
+    B = latents_b.shape[0]
+    dev = latents_b.device
     shape = (B, 2 * r, 2 * r, 2 * r)
-    return sdf.reshape(shape), std.reshape(shape)
+    offs = torch.as_tensor(_sample_offsets(r), device=dev)
+    n_hi = offs.shape[0]
+    if not fast:
+        sdf, std = _decode(decoder, latents_b.repeat_interleave(n_hi, dim=0),
+                           offs.repeat(B, 1))
+        return sdf.reshape(shape), std.reshape(shape)
+    sdf_hi, std_hi = upsample_coarse(decoder, latents_b, r)
+    near = sdf_hi.abs() < 0.05
+    if valid_b is not None:
+        near &= valid_b.repeat_interleave(n_hi)
+    sel, sel_valid, _ = voxops.compact_by_mask(
+        torch.arange(B * n_hi, device=dev), near, reeval_budget)
+    sdf_re, std_re = _decode(decoder, latents_b[sel // n_hi], offs[sel % n_hi])
+    dest = torch.where(sel_valid, sel, B * n_hi)
+    pad = torch.zeros(1, dtype=torch.float32, device=dev)
+    sdf_hi = torch.cat([sdf_hi, pad]).index_copy_(0, dest, sdf_re)[:-1]
+    std_hi = torch.cat([std_hi, pad]).index_copy_(0, dest, std_re)[:-1]
+    return sdf_hi.reshape(shape), std_hi.reshape(shape)
 
 
 def fused_extract(state, updated_mask, cfg, decoder, r: int, mesh_budget: int,
                   tri_budget: int, max_std: float, mesh_cache: MeshCache = None,
-                  reuse_eps: float = 0.0, reuse_counts: torch.Tensor = None):
-    """One incremental extraction.
+                  reuse_eps: float = 0.0, reuse_counts: torch.Tensor = None,
+                  fast: bool = False, reeval_budget: int = 1024):
+    """One incremental extraction (``fast``, ``reeval_budget``: the decode
+    mode of ``decode_cubes``).
 
     ``mesh_cache`` (optional) gates the updated set: an updated voxel whose
     latent moved by at most ``reuse_eps`` (max-abs) since its last meshing
@@ -142,7 +235,8 @@ def fused_extract(state, updated_mask, cfg, decoder, r: int, mesh_budget: int,
     cube_sdf = torch.ones(shape, dtype=torch.float32, device=dev)
     cube_std = torch.full(shape, 1e6, dtype=torch.float32, device=dev)
     for s in range(0, n_keep, MESH_CHUNK):
-        csdf, cstd = decode_cubes(decoder, lat_b[s:s + MESH_CHUNK], r)
+        csdf, cstd = decode_cubes(decoder, lat_b[s:s + MESH_CHUNK], r, fast,
+                                  keep[s:s + MESH_CHUNK], reeval_budget)
         cube_sdf[s:s + MESH_CHUNK] = csdf
         cube_std[s:s + MESH_CHUNK] = cstd
 
@@ -153,109 +247,178 @@ def fused_extract(state, updated_mask, cfg, decoder, r: int, mesh_budget: int,
 
 
 class Mesher:
-    """Owns the incremental triangle cache for one map (sync mode)."""
+    """Owns the incremental triangle cache for one map.
+
+    ``mesh_fast`` is the decode mode of every extraction that does not name
+    one (``extract(fast=None)``), cadence and final alike;
+    ``reeval_fraction`` sizes fast mode's re-decode budget."""
 
     def __init__(self, vmap, max_n_triangles: int = 1 << 17,
-                 mesh_batch_budget: int = 4096, reuse_latent_eps: float = 0.0):
+                 mesh_batch_budget: int = 4096, reuse_latent_eps: float = 0.0,
+                 mesh_fast: bool = False, reeval_fraction: float = 0.25):
         self.map = vmap
         self.budget = int(max_n_triangles)
+        self.mesh_fast = bool(mesh_fast)
+        self.reeval_fraction = float(reeval_fraction)
         self.vertices = np.zeros((0, 3, 3), np.float32)
         self.vertices_std = np.zeros((0, 3), np.float32)
         self.vertices_flatten_id = np.zeros((0,), np.int64)
         self._pending = []
+        # guards _pending and the host cache: the async worker drains into it
+        self._lock = threading.RLock()
         self.mesh_budget = -(-int(mesh_batch_budget) // MESH_CHUNK) * MESH_CHUNK
         self.fused_tri_budget = min(self.budget, max(1 << 15, self.mesh_budget * 64))
         self._need_full_remesh = False
         # Latent-reuse gate (0 disables): the snapshot is keyed by the
-        # extraction parameters that shape triangles, (r, max_std).
+        # extraction parameters that shape triangles, (r, max_std[, "fast"]).
         self.reuse_latent_eps = float(reuse_latent_eps)
         self._mesh_cache = None
         self._mesh_cache_key = None
         self._reuse_counts = torch.zeros(2, dtype=torch.int64, device=vmap.device)
+        # async extraction: the job on the map's worker, and its counts
+        self._future = None
+        self.async_started = 0
+        self.async_returned = 0
 
     def reuse_stats(self) -> dict:
         """Updated voxels the gate saw and skipped over the whole run."""
         n_upd, n_skip = self._reuse_counts.tolist()
         return {"updated": n_upd, "skipped": n_skip}
 
+    def join_async(self):
+        """Wait for the async extraction, if any; re-raise its error."""
+        f, self._future = self._future, None
+        err = None if f is None else f.exception()
+        if err is not None:
+            raise RuntimeError("async mesh extraction failed") from err
+
     def extract(self, voxel_resolution: int, max_std: float = 2000.0,
-                no_cache: bool = False, materialize: bool = True):
-        """Re-mesh updated voxels; returns (T, 3, 3) world triangles, or
-        None with ``materialize=False`` (the fetch waits for the next
-        ``current_mesh()``/``save_ply()``/materialising extract)."""
+                fast: bool = None, no_cache: bool = False, extract_async: bool = False,
+                materialize: bool = True):
+        """Re-mesh updated voxels; returns (T, 3, 3) world triangles.
+
+        ``fast=None`` takes the Mesher's ``mesh_fast``.  ``extract_async``:
+        while an extraction is in flight the call returns None; the first
+        call after it ended returns the refreshed cache and starts nothing;
+        otherwise the call starts one on a snapshot (module docstring) and
+        returns None.  ``materialize=False`` (sync): the fetch waits for the
+        next ``current_mesh()``/``save_ply()``/materialising extract."""
+        fast = self.mesh_fast if fast is None else bool(fast)
+        r = int(voxel_resolution)
+        if extract_async:
+            if self._future is not None:
+                if not self._future.done():
+                    return None
+                self.join_async()
+                self.async_returned += 1
+                return self._mesh()
+            state = type(self.map.state)(*(t.clone() for t in self.map.state))
+            upd = self._take_updated()
+            self._future = self.map.worker.submit(
+                self._extract_impl, state, upd, r, float(max_std), fast, no_cache,
+                drain_deferred=False)
+            self.async_started += 1
+            return None
+        self.join_async()
+        return self._extract_impl(self.map.state, self._take_updated(), r, float(max_std),
+                                  fast, no_cache, materialize)
+
+    def _take_updated(self):
+        """The map's updated-slot accumulators as one device mask (or None),
+        cleared."""
+        vmap = self.map
+        with vmap._upd_lock:
+            upd, vmap._updated_dev = vmap._updated_dev, None
+            if vmap.updated_slots.any():
+                h = torch.tensor(vmap.updated_slots, device=vmap.device)   # a copy
+                upd = h if upd is None else (upd | h)
+                vmap.updated_slots[:] = False
+        return upd
+
+    def _extract_impl(self, state, upd, r: int, max_std: float, fast: bool, no_cache: bool,
+                      materialize: bool = True, drain_deferred: bool = True):
+        """The extraction on ``state`` with the taken updated mask ``upd``.
+        ``drain_deferred=False`` (the async worker): fetch this batch only;
+        its leftovers go to the map's host set for the next extraction."""
         if self._need_full_remesh and not no_cache:
             self._need_full_remesh = False
             no_cache = True
         if no_cache:
-            return self._extract_chunked(voxel_resolution, max_std, materialize)
-        self._dispatch_fused(voxel_resolution, max_std)
+            return self._extract_chunked(state, r, max_std, fast, materialize)
+        self._dispatch_fused(r, max_std, fast, state, upd)
         if not materialize:
             return None
+        if not drain_deferred:
+            self._drain_pending(host_leftover=True)
+            return self.vertices
         # Materialising extractions drain deferred (budget-truncated)
         # batches to completion; a stalled drain falls to the full re-mesh.
         max_rounds = -(-self.map.cfg.latent_capacity // self.mesh_budget) + 8
         for _ in range(max_rounds):
             if not self._drain_pending():
                 break
-            self._dispatch_fused(voxel_resolution, max_std)
+            self._dispatch_fused(r, max_std, fast, state)
         else:
             logging.warning("deferral drain stalled after %d rounds; full re-mesh",
                             max_rounds)
             self._need_full_remesh = True
         if self._need_full_remesh:
             self._need_full_remesh = False
-            return self._extract_chunked(voxel_resolution, max_std, materialize)
-        return self.current_mesh()
+            return self._extract_chunked(state, r, max_std, fast, materialize)
+        return self._mesh()
 
-    def _dispatch_fused(self, voxel_resolution: int, max_std: float):
+    def _dispatch_fused(self, voxel_resolution: int, max_std: float, fast: bool = None,
+                        state=None, upd=_TAKE):
+        """One fused extraction of ``state`` (the map's by default) over the
+        updated mask ``upd`` (taken from the map by default), left pending."""
+        r = int(voxel_resolution)
+        fast = self.mesh_fast if fast is None else bool(fast)
         vmap = self.map
-        upd, vmap._updated_dev = vmap._updated_dev, None
-        if vmap.updated_slots.any():
-            h = torch.tensor(vmap.updated_slots, device=vmap.device)   # a copy
-            upd = h if upd is None else (upd | h)
-            vmap.updated_slots[:] = False
+        state = vmap.state if state is None else state
+        if upd is _TAKE:
+            upd = self._take_updated()
         if upd is None:
             return
-        r = int(voxel_resolution)
         if self.reuse_latent_eps > 0.0:
-            key = (r, float(max_std))
+            # the decode mode shapes triangles too
+            key = (r, float(max_std)) + (("fast",) if fast else ())
             if self._mesh_cache is None or self._mesh_cache_key != key:
-                C, L = vmap.state.latents.shape
+                C, L = state.latents.shape
                 self._mesh_cache = MeshCache(
                     torch.zeros((C + 1, L), dtype=torch.float32, device=vmap.device),
                     torch.zeros(C + 1, dtype=torch.bool, device=vmap.device))
                 self._mesh_cache_key = key
         result, ids, keep, map_ovf, leftover, n_left = fused_extract(
-            vmap.state, upd, vmap.cfg, vmap.model.decoder, r,
+            state, upd, vmap.cfg, vmap.model.decoder, r,
             self.mesh_budget, self.fused_tri_budget, float(max_std),
             mesh_cache=self._mesh_cache, reuse_eps=self.reuse_latent_eps,
-            reuse_counts=self._reuse_counts)
-        self._pending.append(_Pending(ids, keep, result, map_ovf, leftover, n_left))
+            reuse_counts=self._reuse_counts, fast=fast,
+            reeval_budget=reeval_budget_for(r, self.reeval_fraction))
+        with self._lock:
+            self._pending.append(_Pending(ids, keep, result, map_ovf, leftover, n_left))
 
-    def _extract_chunked(self, voxel_resolution: int, max_std: float,
+    def _extract_chunked(self, state, r: int, max_std: float, fast: bool,
                          materialize: bool = True):
-        """Full re-mesh of every observed voxel, unbounded: the repair path
-        after a batch lost triangles to a device budget (and the
+        """Full re-mesh of every observed voxel of ``state``, unbounded: the
+        repair path after a batch lost triangles to a device budget (and the
         ``no_cache`` path).  Host bookkeeping in numpy, decode in
         ``MESH_CHUNK``-voxel chunks, one marching-cubes pass.  It neither
         reads nor refreshes the latent-reuse snapshot, so it drops it."""
         self._mesh_cache = None
         self._mesh_cache_key = None
         vmap, cfg = self.map, self.map.cfg
-        state = vmap.state
         if bool(state.overflow):
             raise RuntimeError(
                 "Map capacity overflow: raise mapping.latent_capacity/alloc_capacity")
-        vmap._updated_dev = None
         positions = state.positions.cpu().numpy().astype(np.int64)
         obs = state.obs_count.cpu().numpy()
         indexer = state.indexer.cpu().numpy()
         updated = obs > 0
-        self._pending.clear()          # superseded: everything re-meshes
-        self.vertices = np.zeros((0, 3, 3), np.float32)
-        self.vertices_std = np.zeros((0, 3), np.float32)
-        self.vertices_flatten_id = np.zeros((0,), np.int64)
-        vmap.updated_slots[:] = False
+        with self._lock:
+            self._pending.clear()          # superseded: everything re-meshes
+            self.vertices = np.zeros((0, 3, 3), np.float32)
+            self.vertices_std = np.zeros((0, 3), np.float32)
+            self.vertices_flatten_id = np.zeros((0,), np.int64)
         # updated voxels and their 6 neighbours, confident ones only
         upd_ids = positions[updated & (positions >= 0)]
         nx, ny, nz = cfg.n_xyz
@@ -269,8 +432,7 @@ class Mesher:
         slots, mesh_ids = slots[keep], exp_ids[keep]
         B_real = len(slots)
         if B_real == 0:
-            return self.current_mesh() if materialize else None
-        r = int(voxel_resolution)
+            return self._mesh() if materialize else None
         B = MESH_CHUNK
         n_chunks = -(-B_real // B)
         bucket = 1                     # power-of-two chunk count
@@ -280,12 +442,15 @@ class Mesher:
         dev = vmap.device
         slots_pad = np.zeros((n_chunks * B,), np.int64)
         slots_pad[:B_real] = slots
+        valid_pad = torch.arange(n_chunks * B, device=dev) < B_real
         shape = (BT, 2 * r, 2 * r, 2 * r)
         cube_sdf = torch.zeros(shape, dtype=torch.float32, device=dev)
         cube_std = torch.zeros(shape, dtype=torch.float32, device=dev)
+        budget = reeval_budget_for(r, self.reeval_fraction)
         for s in range(0, n_chunks * B, B):
             lat = state.latents[torch.as_tensor(slots_pad[s:s + B], device=dev)]
-            cube_sdf[s:s + B], cube_std[s:s + B] = decode_cubes(vmap.model.decoder, lat, r)
+            cube_sdf[s:s + B], cube_std[s:s + B] = decode_cubes(
+                vmap.model.decoder, lat, r, fast, valid_pad[s:s + B], budget)
         ids_b = np.zeros((BT,), np.int64)
         ids_b[:B_real] = mesh_ids
         batch_map = np.full((cfg.latent_capacity,), -1, np.int64)
@@ -295,15 +460,18 @@ class Mesher:
             torch.as_tensor(ids_b, device=dev),
             torch.arange(BT, device=dev) < B_real, cube_sdf, cube_std, cfg.n_xyz,
             cfg.voxel_size, cfg.bound_min, r, cfg.latent_capacity, max_std, self.budget)
-        self._pending.append(_Pending(mesh_ids, None, result, None))
+        with self._lock:
+            self._pending.append(_Pending(mesh_ids, None, result, None))
         if not materialize:
             return None
-        self._drain_pending()
-        return self.current_mesh()
+        return self._mesh()
 
-    def _drain_pending(self) -> int:
-        """Materialise all dispatched extractions into the host cache."""
-        pending, self._pending = self._pending, []
+    def _drain_pending(self, host_leftover: bool = False) -> int:
+        """Materialise all dispatched extractions into the host cache.
+        Leftovers of truncated batches go back to the map's device
+        accumulator, or with ``host_leftover`` to its host set."""
+        with self._lock:
+            pending, self._pending = self._pending, []
         if not pending:
             return 0
         total_leftover = 0
@@ -322,8 +490,12 @@ class Mesher:
             n_left = int(p.n_leftover) if fused else 0
             if n_left > 0:
                 total_leftover += n_left
-                vmap._updated_dev = (p.leftover if vmap._updated_dev is None
-                                     else vmap._updated_dev | p.leftover)
+                if host_leftover:
+                    left = p.leftover.cpu().numpy()
+                    with vmap._upd_lock:
+                        vmap.updated_slots |= left
+                else:
+                    vmap._mark_updated(p.leftover)
                 logging.info("mesh batch budget %d exceeded; %d voxels deferred "
                              "to the next extraction", self.mesh_budget, n_left)
             ids = p.mesh_ids[p.keep].cpu().numpy() if fused else p.mesh_ids
@@ -337,19 +509,26 @@ class Mesher:
             vstd = res.vertex_std[:n].cpu().numpy()
             fid = res.flatten_id[:n].cpu().numpy().astype(np.int64)
             # each batch drops every cached triangle of a voxel it re-meshed
-            stale = np.isin(self.vertices_flatten_id, ids)
-            self.vertices = np.concatenate([self.vertices[~stale], verts])
-            self.vertices_std = np.concatenate([self.vertices_std[~stale], vstd])
-            self.vertices_flatten_id = np.concatenate(
-                [self.vertices_flatten_id[~stale], fid])
+            with self._lock:
+                stale = np.isin(self.vertices_flatten_id, ids)
+                self.vertices = np.concatenate([self.vertices[~stale], verts])
+                self.vertices_std = np.concatenate([self.vertices_std[~stale], vstd])
+                self.vertices_flatten_id = np.concatenate(
+                    [self.vertices_flatten_id[~stale], fid])
         return total_leftover
 
-    def current_mesh(self):
+    def _mesh(self):
         self._drain_pending()
         return self.vertices
 
+    def current_mesh(self):
+        """The cached triangles, after the async extraction (if any) ended."""
+        self.join_async()
+        return self._mesh()
+
     def save_ply(self, path, color_by_std: bool = True, std_range=None):
         """Binary PLY with jet vertex colours of the uncertainty."""
+        self.join_async()
         self._drain_pending()
         verts = self.vertices.reshape(-1, 3).astype("<f4")
         stds = self.vertices_std.reshape(-1)

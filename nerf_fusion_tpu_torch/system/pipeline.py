@@ -1,10 +1,18 @@
 """Online fusion pipeline: sequence -> tracker -> map -> mesher (one device).
 
-Counterpart of the JAX package's ``system/pipeline.py`` for the sync path:
-depth cut -> track -> every ``integrate_interval`` frames transform the
-processed cloud by the pose and integrate it -> every
-``meshing_interval`` frames re-mesh -> a final full-quality mesh.  Writes
-the same ``trajectory.txt``, ``mesh.ply``, ``map.npz`` and ``stats.json``.
+Counterpart of the JAX package's ``system/pipeline.py``: depth cut ->
+track -> every ``integrate_interval`` frames transform the processed cloud
+by the pose and integrate it (with ``do_optimize``, refine the latents
+after) -> every ``meshing_interval`` frames re-mesh -> at the end join the
+workers and extract a final full-quality mesh.  Writes the same
+``trajectory.txt``, ``mesh.ply``, ``map.npz`` and ``stats.json``.
+
+``run_async`` runs the cadence meshing and, with ``do_optimize``, the
+refinement on the map's worker (``system/worker.py``: one thread and one
+CUDA stream of the one card, the JAX package's second device;
+``single_device: true`` means the same here).  ``mesh_fast`` is the decode mode of every extraction (the
+reference's coarse decode, upsample and near-surface re-decode); the exact
+full decode stays the default.
 
 Mesh samples are decoded in f32 for every ``mesh_decode_precision``.  The
 JAX package's ``default`` is a one-pass bf16 decode, so the port's mesh is
@@ -39,16 +47,17 @@ class FusionPipeline:
     def __init__(self, model, args, device, point_budget: int = None):
         self.device = torch.device(device)
         self.args = args
-        for name in ("run_async", "do_optimize", "mesh_fast"):
-            if bool(getattr(args, name, False)):
-                raise NotImplementedError(f"{name}: true is not ported yet")
+        self.run_async = bool(getattr(args, "run_async", False))
+        self.do_optimize = bool(getattr(args, "do_optimize", False))
+        self.mesh_fast = bool(getattr(args, "mesh_fast", False))
         model.to(self.device)
         self.map = SparseVoxelMap(model, args.mapping, args.model.code_length,
                                   self.device)
         self.mesher = Mesher(self.map, max_n_triangles=int(
             getattr(args, "max_n_triangles", 4e6)),
             mesh_batch_budget=int(getattr(args, "mesh_batch_budget", 4096)),
-            reuse_latent_eps=float(getattr(args, "mesh_reuse_latent_eps", 0.0)))
+            reuse_latent_eps=float(getattr(args, "mesh_reuse_latent_eps", 0.0)),
+            mesh_fast=self.mesh_fast)
         budget = point_budget or int(getattr(args.mapping, "points_capacity", 16384))
         self.tracker = SDFTracker(self.map, args.tracking, point_budget=budget)
         self.timer = StageTimer()
@@ -104,14 +113,17 @@ class FusionPipeline:
         if frame_id % self.args.integrate_interval == 0:
             pts, nrm, mask = self.tracker.last_processed_pc
             self.timer.start("integrate")
-            self.map.integrate_keyframe(pts, nrm, valid=mask, pose=pose)
+            self.map.integrate_keyframe(pts, nrm, valid=mask, pose=pose,
+                                        do_optimize=self.do_optimize,
+                                        async_optimize=self.run_async)
             self.timer.stop("integrate")
         if frame_id % self.args.meshing_interval == 0:
             self.timer.start("mesh")
-            # the fetch is deferred to the next read of the mesh
+            # the fetch is deferred to the next read of the mesh (sync), or
+            # the worker fetches (async)
             self.mesher.extract(self.args.resolution,
                                 max_std=getattr(self.args, "max_std", 0.15),
-                                materialize=False)
+                                extract_async=self.run_async, materialize=False)
             self.timer.stop("mesh")
         return pose
 
@@ -126,6 +138,9 @@ class FusionPipeline:
             logging.info("Frame ID = %d", i)
             self.process_frame(frame, i, use_gt_pose=use_gt_pose)
         self.flush_frames()
+        with self.timer.scope("join"):
+            self.mesher.join_async()
+            self.map.join_refiner()
         with self.timer.scope("final_mesh"):
             self.mesher.extract(self.args.resolution,
                                 max_std=getattr(self.args, "max_std", 0.15))
@@ -138,7 +153,8 @@ class FusionPipeline:
             if drops.max() > 0.05:
                 logging.warning(
                     "box-filter drop rate peaked at %.1f%% (>5%%): raise "
-                    "mapping.points_capacity", 100 * drops.max())
+                    "mapping.points_capacity (the exact filter) or the hash "
+                    "filter's table_bits", 100 * drops.max())
         results["map"] = {"n_occupied": int(self.map.state.n_occupied),
                           "overflow": bool(self.map.state.overflow)}
         if sequence.gt_trajectory is not None and not use_gt_pose:
@@ -152,6 +168,12 @@ class FusionPipeline:
         results["n_triangles"] = int(len(self.mesher.current_mesh()))
         if self.mesher.reuse_latent_eps > 0.0:
             results["mesh_reuse"] = self.mesher.reuse_stats()
+        if self.map.refine_log:
+            results["refine"] = self.map.refine_summary()
+            results["refine_merged"] = self.map.refine_merged
+        if self.run_async:
+            results["async_mesh"] = {"started": self.mesher.async_started,
+                                     "returned": self.mesher.async_returned}
         if output_dir is not None:
             output_dir = Path(output_dir)
             output_dir.mkdir(parents=True, exist_ok=True)

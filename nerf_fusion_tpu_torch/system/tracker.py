@@ -73,6 +73,7 @@ class TrackerConfig(NamedTuple):
     normal_radius: float = 0.1
     normal_min_nb: int = 5
     box_filter_size: float = 0.02
+    box_filter_exact: bool = True  # False: the hash box filter
 
     @staticmethod
     def from_args(args) -> "TrackerConfig":
@@ -82,9 +83,6 @@ class TrackerConfig(NamedTuple):
         sdf, rgb = as_dict(args.sdf), as_dict(args.rgb)
         pre = as_dict(getattr(args, "preprocess", {}) or {})
         motion = as_dict(getattr(args, "motion", {}) or {})
-        if not bool(pre.get("box_filter_exact", True)):
-            raise NotImplementedError(
-                "preprocess.box_filter_exact: false (hash box filter) is not ported yet")
         groups = []
         for g in args.iter_config:
             groups.append((int(g["n"]), tuple(tuple(t) for t in g["type"])))
@@ -106,6 +104,7 @@ class TrackerConfig(NamedTuple):
             normal_radius=float(pre.get("normal_radius", 0.1)),
             normal_min_nb=int(pre.get("normal_min_nb", 5)),
             box_filter_size=float(pre.get("box_filter_size", 0.02)),
+            box_filter_exact=bool(pre.get("box_filter_exact", True)),
         )
 
 
@@ -331,15 +330,18 @@ class _Graph:
     capture checks this thread's CUDA calls only: a reader's decode threads
     run beside it (a capture of the same prelude that passed twice failed
     once with the capture invalidated, in a run with the prefetcher's
-    threads alive)."""
+    threads alive).  It holds ``launches.EXCLUSIVE``, so that no async
+    mesher or refiner launches inside it."""
 
     def __init__(self, fn):
-        before = launches.snapshot()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.out = fn()
-        self.launches = launches.diff(launches.snapshot(), before)
-        launches.add(self.launches, -1)
+        # no worker thread launches while the counters are diffed
+        with launches.EXCLUSIVE:
+            before = launches.snapshot()
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                self.out = fn()
+            self.launches = launches.diff(launches.snapshot(), before)
+            launches.add(self.launches, -1)
 
     def replay(self):
         self.graph.replay()
@@ -474,7 +476,7 @@ class SDFTracker:
             depth_scale=float(getattr(calib, "dscale", 1.0)),
             outlier_radius=t.outlier_radius, outlier_min_nb=t.outlier_min_nb,
             normal_radius=t.normal_radius, normal_min_nb=t.normal_min_nb,
-            box_filter_size=t.box_filter_size)
+            box_filter_size=t.box_filter_size, box_filter_exact=t.box_filter_exact)
 
     def _spill_pose_log(self, needed: int):
         live = self.n_tracked - self._n_archived

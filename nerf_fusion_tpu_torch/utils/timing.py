@@ -80,19 +80,25 @@ def device_ms(fn, reps: int = 20, flush=None) -> float:
 
 def device_trace(fn, reps: int = 20) -> list:
     """One dict per device event of ``reps`` calls, from the chrome trace:
-    name, duration in us, grid and block (None for a copy)."""
+    name, duration in us, grid and block (None for a copy).  A trace
+    without device events is taken again, at most three times in all, as
+    in ``device_ms``."""
     _warm(fn)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
-    return [{"name": e["name"], "us": float(e["dur"]), "grid": e["args"].get("grid"),
-             "block": e["args"].get("block")}
-            for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())["traceEvents"]
+        out = [{"name": e["name"], "us": float(e["dur"]), "grid": e["args"].get("grid"),
+                "block": e["args"].get("block")}
+               for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        if out:
+            return out
+    raise RuntimeError("device_trace: three traces held no device events")
 
 
 def call_ms(fn, reps: int = 20) -> float:

@@ -190,6 +190,69 @@ def test_decoder_kernels_match_plain(cuda_device, model, n):
     assert ok >= 0.999
 
 
+def _vjp_rows_within(dx, ref, tol=1e-3):
+    """Share of rows whose dx is within ``tol`` of the row's largest |entry|
+    of the plain version (a ReLU input within rounding of 0 may flip)."""
+    scale = ref.abs().amax(1).clamp_min(1e-30)
+    return float(((dx - ref).abs().amax(1) <= tol * scale).float().mean())
+
+
+def test_decoder_vjp_on_cpu_is_the_plain_version_and_counts_nothing(model):
+    dec = model.decoder
+    gen = torch.Generator().manual_seed(3)
+    x, g = 0.4 * torch.randn(70, 32, generator=gen), torch.randn(70, 2, generator=gen)
+    n0 = mlp.decoder_vjp.launches
+    assert torch.equal(mlp.decoder_vjp(x, g, dec.packed_vjp, dec.mats),
+                       mlp.decoder_vjp_plain(x, g, dec.mats))
+    xr = x.clone().requires_grad_()
+    (dec.differentiable(xr) * g).sum().backward()
+    assert torch.equal(xr.grad, mlp.decoder_vjp_plain(x, g, dec.mats))
+    assert mlp.decoder_vjp.launches == n0
+    for bad_g in (g[:, :1], g.double(), g.T.contiguous().T):
+        with pytest.raises(ValueError):
+            mlp.decoder_vjp(x, bad_g, dec.packed_vjp, dec.mats)
+    with pytest.raises(ValueError):
+        mlp.decoder_vjp(x, g, dec.packed, dec.mats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 5000, 327680])
+def test_decoder_vjp_kernel_matches_plain(cuda_device, model, n):
+    """Ragged sizes (a block takes 64 rows) up to the refinement's 8 x 40960
+    rows: dx within 1e-3 of each row's largest entry on 99.9 % of the rows;
+    one launch counted."""
+    dec = model.decoder.to(cuda_device)
+    gen = torch.Generator().manual_seed(n)
+    x = (0.4 * torch.randn(n, 32, generator=gen)).to(cuda_device)
+    g = torch.randn(n, 2, generator=gen).to(cuda_device)
+    n0 = mlp.decoder_vjp.launches
+    dx = mlp.decoder_vjp(x, g, dec.packed_vjp, dec.mats)
+    assert mlp.decoder_vjp.launches == n0 + 1
+    assert _vjp_rows_within(dx, mlp.decoder_vjp_plain(x, g, dec.mats)) >= 0.999
+
+
+@pytest.mark.cuda
+def test_decoder_fn_autograd_on_card_matches_cpu(cuda_device, model):
+    """A latent buffer through a gather and ``DecoderFn`` under autograd:
+    the card's gradient against the CPU's, within 1e-3 of each row's
+    largest entry on 99.9 % of the rows; the backward launches the kernel."""
+    gen = torch.Generator().manual_seed(5)
+    lat = 0.3 * torch.randn(500, 29, generator=gen)
+    slot = torch.randint(0, 500, (8000,), generator=gen)
+    pos = torch.rand(8000, 3, generator=gen) - 0.5
+    w = torch.randn(8000, 2, generator=gen)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        dec = model.decoder.to(dev)
+        lat_d = lat.to(dev, copy=True).requires_grad_()
+        x = torch.cat([lat_d[slot.to(dev)], pos.to(dev)], 1)
+        n0 = mlp.decoder_vjp.launches
+        (dec.differentiable(x) * w.to(dev)).sum().backward()
+        assert mlp.decoder_vjp.launches == n0 + (dev != "cpu")
+        grads.append(lat_d.grad.cpu())
+    assert _vjp_rows_within(grads[1], grads[0]) >= 0.999
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 15, 16, 17, 5000, 327680])
 def test_encoder_kernel_matches_plain(cuda_device, model, n):
@@ -574,3 +637,22 @@ def test_trained_checkpoint_through_the_kernels(cuda_device):
         lat_k, lat_t = nets.encoder(pts), tenc(pts)
     assert (sdf_k - sdf_t).abs().max() <= 1e-4 and (std_k - std_t).abs().max() <= 1e-4
     assert (lat_k - lat_t).abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["room", "large"])
+def test_batch_render_on_card_matches_single_frame_render(cuda_device, scene):
+    """On the card an iterated synthetic sequence renders ``RENDER_BATCH``
+    frames in one pass: each frame bitwise the single-frame render of its
+    pose (NaN depth at the same pixels), a short last batch included."""
+    from nerf_fusion_tpu_torch.data import synth
+
+    n = synth.RENDER_BATCH + 3
+    seq = synth.SyntheticSequence(n_frames=n, width=160, height=120, scene=scene,
+                                  device=cuda_device)
+    for i, f in enumerate(seq):
+        want = seq.render_frame(i)
+        for a, b in ((f.rgb, want.rgb), (f.depth, want.depth)):
+            assert torch.equal(torch.isnan(a), torch.isnan(b))
+            assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+    assert i == n - 1
