@@ -54,6 +54,28 @@
        mesh |SDF| of (a) run again; both runs under PyTorch's
        deterministic algorithms (``index_add_`` atomics make two runs of
        the same path differ otherwise);
+   (c2) the dense path with ``--vis 1 --vis_interval 20`` (the previews of
+       frames 20, 40, 60 and 80 under ``output/chip_smoke/vis/preview``),
+       also under deterministic algorithms: 4 each of ``mesh_*.ply``,
+       ``trajectory_*.txt`` and ``blocks_*.ply``, the trajectory at frame 40
+       with 41 rows, block wireframes with edges, mesh PLY headers that fit
+       their bodies; ATE and mesh |SDF| within 0.3 mm of the deterministic
+       dense run's (it prints whether the trajectory is bitwise that run's)
+       and the ``vis_preview`` stage ms;
+   (c3) the map's debug visuals (``visuals``) and the LM point tracker
+       (``lm``) on a fusion-synth pipeline of 41 frames at 640x480:
+       ``get_map_visuals`` with blocks, samples, uncertainty and mesh at
+       ``voxel_resolution`` 8 (its device ms; the samples within 1e-4 of
+       ``decoder_forward_plain`` on the same rows; the live mesher's
+       updated-slot accumulators bitwise kept), then ``track_points_lm``
+       on the last keyframe's world points (at most 4096) seen under a
+       known pose error, 25 iterations under ``torch.cuda.set_sync_debug_mode
+       ("error")``: within 1 cm and 1 degree of the truth, within 1 mm and
+       0.05 degree of the same run with the plain decoder, one
+       ``decoder_forward_grad`` and one ``decoder_forward`` an iteration, ms
+       an iteration between CUDA events; then the decoder's ``tp`` layout
+       over two NCCL ranks (``tools/tp_check``) where the host has two
+       cards (skipped, and said so, with one);
    (c1) the fusion loop's options on fusion-synth (``OPTION_EXECS``), each
        with the dense path's gates: ``refine`` (``do_optimize``: per
        refinement its eligible and sampled voxels, device ms and the mean
@@ -126,7 +148,8 @@
    a run without a prefetcher (both under PyTorch's deterministic
    algorithms).  Fails unless every kernel launched on some path, the
    photometric kernel, the fused frontend stencil and ``gn_step`` on the
-   fusion paths, ``decoder_vjp`` on ``refine`` and ``async``, ``select_gather`` on (b), (g) and (h), the row gather on no
+   fusion paths, ``decoder_vjp`` on ``refine`` and ``async``, ``select_gather`` on (b), (g) and (h),
+   the decoder on (c3)'s visuals and both decoder variants on its LM run, the row gather on no
    fusion path and at 1, 2 and 4 on (d), the two standalone stencils on
    (e), the decoder and the encoder on (i) and (j), ``stencil_frontend``
    on (j), the decoder on (l), and on every fusion path but ``hash_box`` the
@@ -146,6 +169,7 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -173,13 +197,21 @@ OPTION_EXECS = {
     "async": "run_async=True;do_optimize=True",
     "hash_box": FAST_EXEC + ";tracking['preprocess']={'box_filter_exact': False}",
 }
+TRACE_RERUNS = 2       # more runs of a fusion path whose trace lost kernel records
 HASH_DROP_MAX = 0.05    # the JAX pipeline's warning level (nerf_fusion_tpu/system/pipeline.py:215-220)
 # (ATE, mesh |SDF|) gates in metres per fusion path; lr-kt's are the JAX
 # bench's (bench.py: parity 20 / 28 mm, fast 12 / 20 mm)
 GATES = {"dense": (0.02, 0.02), "fast": (0.02, 0.02), "dense_det": (0.02, 0.02),
          "fpc19": (0.02, 0.02), "refine": (0.02, 0.02), "mesh_fast": (0.02, 0.02),
          "async": (0.02, 0.02), "hash_box": (0.02, 0.02),
-         "lrkt": (0.02, 0.028), "lrkt_fast": (0.012, 0.02), "scannet_scale": (0.02, 0.02)}
+         "lrkt": (0.02, 0.028), "lrkt_fast": (0.012, 0.02), "scannet_scale": (0.02, 0.02),
+         "vis": (0.02, 0.02)}
+VIS_ARGV = ["--vis", "1", "--vis_interval", "20"]
+VIS_FRAMES = (20, 40, 60, 80)   # the previews of 100 frames at vis_interval 20
+VISUALS_FRAMES = 41     # the visuals and LM phases' fusion-synth pipeline
+LM_XI = [0.02, -0.015, 0.02, 0.015, -0.02, 0.01]   # tests/test_lm_tracker.py's pose error
+LM_ITERS = 25
+LM_POINTS = 4096
 # NVIDIA H100 SXM data sheet peaks (dense, at the 700 W limit).
 PEAK_F32_FLOPS = 67e12      # CUDA cores
 PEAK_TF32_FLOPS = 495e12    # tensor cores
@@ -987,30 +1019,17 @@ def stream_stats(prof) -> dict:
     return out
 
 
-def fusion_path(dev, label: str, exec_: str = None, config: str = CONFIG,
-                max_frames: int = None, max_drop: float = 0.0, streams: bool = False,
-                after=None):
-    """The fusion loop through its entry point, launch counters zeroed, in a
-    profiler trace: the counters must equal the trace's kernels.  Fails on
-    the path's ATE and mesh |SDF| gates (``GATES``), a box-filter drop above
-    ``max_drop``, a map overflow or an empty mesh.  ``streams``: the trace's
-    ``stream_stats`` go into the result.  ``after(pipe, res)`` runs last,
-    outside the trace and the counted launches."""
+def traced_run(argv: list) -> tuple:
+    """One run of the fusion entry point with ``argv``, launch counters
+    zeroed, in a device trace: (pipeline, result, wall s, counters, launches
+    by kernel row, the trace's kernels by counter, all its kernels, the
+    profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from nerf_fusion_tpu_torch import main as entry
-    from nerf_fusion_tpu_torch.data.synth import scene_sdf
     from nerf_fusion_tpu_torch.ops import launches
-    from nerf_fusion_tpu_torch.tools.graph_check import graph_vs_eager
-    from nerf_fusion_tpu_torch.utils.evaluate import mesh_abs_sdf_error
 
-    out_dir = REPO / "output" / "chip_smoke" / label
-    argv = [str(REPO / config), "--device", str(dev), "--output", str(out_dir)]
-    if exec_:
-        argv += ["--exec", exec_]
-    if max_frames:
-        argv += ["--max_frames", str(max_frames)]
     torch.cuda.synchronize()
     zero_launches()
     t0 = time.perf_counter()
@@ -1024,11 +1043,52 @@ def fusion_path(dev, label: str, exec_: str = None, config: str = CONFIG,
     counted = launches.snapshot()
     launches_ = read_launches()
     traced, total = trace_counts(prof)
+    return pipe, res, wall, counted, launches_, traced, total, prof
+
+
+def fusion_path(dev, label: str, exec_: str = None, config: str = CONFIG,
+                max_frames: int = None, max_drop: float = 0.0, streams: bool = False,
+                after=None, argv: tuple = ()):
+    """The fusion loop through its entry point, launch counters zeroed, in a
+    profiler trace: the counters must equal the trace's kernels.  Fails on
+    the path's ATE and mesh |SDF| gates (``GATES``), a box-filter drop above
+    ``max_drop``, a map overflow or an empty mesh.  ``streams``: the trace's
+    ``stream_stats`` go into the result.  ``after(pipe, res)`` runs last,
+    outside the trace and the counted launches.  ``argv``: more arguments of
+    the entry point.
+
+    A trace can lose kernel records (seen under bursts of launches) but
+    never gain one, while a counter that counts wrongly does
+    so on every run.  So where the trace holds fewer kernels than the
+    counters and more of none, the path is run again, up to
+    ``TRACE_RERUNS`` times, and the counters of one of those runs must equal
+    its trace exactly.  That run gives the launches, the kernels a frame and
+    ``stream_stats``; every other gate holds on the first run."""
+    import torch
+
+    from nerf_fusion_tpu_torch.data.synth import scene_sdf
+    from nerf_fusion_tpu_torch.tools.graph_check import graph_vs_eager
+    from nerf_fusion_tpu_torch.utils.evaluate import mesh_abs_sdf_error
+
+    out_dir = REPO / "output" / "chip_smoke" / label
+    argv = [str(REPO / config), "--device", str(dev), "--output", str(out_dir), *argv]
+    if exec_:
+        argv += ["--exec", exec_]
+    if max_frames:
+        argv += ["--max_frames", str(max_frames)]
+    pipe, res, wall, counted, launches_, traced, total, prof = traced_run(argv)
     if "mesh_abs_sdf" not in res:
         # a disk reader has no scene SDF: the lr-kt export is the synthetic
         # room in its own world frame (read with the exported first_tq)
         res["mesh_abs_sdf"] = mesh_abs_sdf_error(pipe.mesher.current_mesh(), scene_sdf,
                                                  device=dev)
+    for rerun in range(TRACE_RERUNS):
+        if traced == counted or any(traced[k] > counted[k] for k in counted):
+            break
+        lost = {k: counted[k] - traced[k] for k in counted if counted[k] != traced[k]}
+        print(f"{label} path: the trace lost kernel records {lost}; run {rerun + 2} of the "
+              f"path to hold the counters to a whole trace", flush=True)
+        *_, counted, launches_, traced, total, prof = traced_run(argv)
     tr = pipe.tracker
     n = res["n_frames"]
     tracked = tr.n_tracked - 1
@@ -1744,6 +1804,245 @@ def model_layer_phase(dev):
     return launches_, res
 
 
+def keep_poses(pipe, res):
+    """``after`` hook: the run's pose log (device) into ``res``."""
+    res["pose_log"] = pipe.tracker._pose_log[:pipe.tracker.n_tracked].clone()
+
+
+def _ply_header(path: Path) -> tuple:
+    """(header lines, bytes after the header) of a PLY file."""
+    data = path.read_bytes()
+    head, sep, body = data.partition(b"end_header\n")
+    if not sep:
+        fail(f"vis: {path.name} has no end_header")
+    return head.decode().splitlines(), body
+
+
+def vis_check(vis: dict, dense: dict, wall: float):
+    """The ``--vis`` run's previews and result beside ``dense_det``'s: 4 of
+    each file, the trajectory at frame 40 with 41 rows, block wireframes
+    with edges, mesh PLY headers that fit their bodies; ATE and mesh |SDF|
+    within 0.3 mm of the run without previews."""
+    import numpy as np
+    import torch
+
+    prev = REPO / "output" / "chip_smoke" / "vis" / "preview"
+    for kind, ext in (("mesh", "ply"), ("trajectory", "txt"), ("blocks", "ply")):
+        names = sorted(p.name for p in prev.glob(f"{kind}_*.{ext}"))
+        want = [f"{kind}_{i:05d}.{ext}" for i in VIS_FRAMES]
+        if names != want:
+            fail(f"vis: preview {kind} files {names}, not {want}")
+    rows = np.loadtxt(prev / "trajectory_00040.txt").shape
+    if rows != (41, 8):
+        fail(f"vis: trajectory_00040.txt has shape {rows}, not (41, 8)")
+    edges = []
+    for i in VIS_FRAMES:
+        head, _ = _ply_header(prev / f"blocks_{i:05d}.ply")
+        n = [int(l.split()[-1]) for l in head if l.startswith("element edge")]
+        if not n or n[0] <= 0:
+            fail(f"vis: blocks_{i:05d}.ply has no edges")
+        edges.append(n[0])
+        head, body = _ply_header(prev / f"mesh_{i:05d}.ply")
+        counts = {l.split()[1]: int(l.split()[2]) for l in head if l.startswith("element")}
+        size = counts.get("vertex", -1) * 15 + counts.get("face", -1) * 13
+        if (head[:2] != ["ply", "format binary_little_endian 1.0"]
+                or counts.get("vertex", 0) <= 0 or size != len(body)):
+            fail(f"vis: mesh_{i:05d}.ply header {head} does not fit its {len(body)} bytes")
+    same = torch.equal(vis["pose_log"], dense["pose_log"])
+    t = vis["timing"]["vis_preview"]
+    print(f"vis path: previews at frames {list(VIS_FRAMES)} ({t['count']} writes, "
+          f"vis_preview mean {t['mean_ms']:.3f} ms, slowest {t['max_ms']:.3f} ms), block "
+          f"edges {edges}; ATE {1e3 * vis['ate_rmse']:.4f} mm, mesh |SDF| "
+          f"{1e3 * vis['mesh_abs_sdf']:.4f} mm against dense_det's "
+          f"{1e3 * dense['ate_rmse']:.4f}, {1e3 * dense['mesh_abs_sdf']:.4f}; trajectory "
+          f"bitwise dense_det's: {same}; wall {wall:.2f} s", flush=True)
+    if t["count"] != len(VIS_FRAMES):
+        fail(f"vis: {t['count']} preview writes, not {len(VIS_FRAMES)}")
+    for key in ("ate_rmse", "mesh_abs_sdf"):
+        if not abs(vis[key] - dense[key]) <= 3e-4:
+            fail(f"vis: {key} {vis[key]} m against dense_det's {dense[key]} m")
+
+
+class PlainDecoder:
+    """The map's decoder through its plain PyTorch versions (on the card,
+    for the LM phase's reference run)."""
+
+    def __init__(self, dec):
+        self.mats = dec.mats
+
+    def __call__(self, net_in):
+        from nerf_fusion_tpu_torch.ops import mlp
+
+        out = mlp.decoder_forward_plain(net_in, self.mats)
+        return out[:, 0:1], out[:, 1:2]
+
+    def forward_grad(self, net_in):
+        from nerf_fusion_tpu_torch.ops import mlp
+
+        return mlp.decoder_forward_grad_plain(net_in, self.mats)
+
+
+def _pose_err(R, t, iso) -> tuple:
+    """(translation m, rotation degrees) between a device pose and an Isometry."""
+    import numpy as np
+
+    from nerf_fusion_tpu_torch.utils.se3 import Isometry
+
+    rec = Isometry.from_matrix(R.double().cpu().numpy(), t.double().cpu().numpy(), ortho=True)
+    dR = rec.q.rotation_matrix.T @ iso.q.rotation_matrix
+    return (float(np.linalg.norm(rec.t - iso.t)),
+            float(np.degrees(np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1)))))
+
+
+def visuals_lm_phase(dev):
+    """The map's debug visuals and the LM point tracker on a fusion-synth
+    pipeline of ``VISUALS_FRAMES`` frames at 640x480 (through the entry
+    point).  Visuals: ``get_map_visuals`` with all four parts at
+    ``voxel_resolution`` 8 (counters zeroed; device ms from its trace), the
+    samples' sdf and std within 1e-4 of ``decoder_forward_plain`` on the
+    same rows, the live mesher's updated-slot accumulators bitwise as
+    before.  LM: the last keyframe's world points (at most ``LM_POINTS``,
+    strided) seen under ``LM_XI``, ``LM_ITERS`` iterations under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync fails it): the
+    pose within 1 cm and 1 degree of the truth and within 1 mm and 0.05
+    degree of the same run with the plain decoder; one ``decoder_forward_grad``
+    and one ``decoder_forward`` an iteration.
+    :return: (visuals launches, lm launches, results)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nerf_fusion_tpu_torch import main as entry
+    from nerf_fusion_tpu_torch.ops import mlp
+    from nerf_fusion_tpu_torch.system.tracker import track_points_lm
+    from nerf_fusion_tpu_torch.utils.se3 import Isometry
+
+    t0 = time.perf_counter()
+    pipe, _ = entry.run([str(REPO / CONFIG), "--device", str(dev), "--output",
+                         str(REPO / "output" / "chip_smoke" / "visuals"),
+                         "--max_frames", str(VISUALS_FRAMES)])
+    vmap = pipe.map
+    # pending updates for the live mesher (the run's final mesh took them)
+    occ = (vmap.state.positions >= 0).cpu().numpy()
+    vmap.updated_slots[np.flatnonzero(occ)[::3]] = True
+    every2 = torch.zeros_like(vmap.state.positions, dtype=torch.bool)
+    every2[::2] = True
+    vmap._mark_updated(every2 & (vmap.state.positions >= 0))
+    slots_before = vmap.updated_slots.copy()
+    dev_before = vmap._updated_dev.clone()
+    name = torch.cuda.get_device_name(0)
+
+    torch.cuda.synchronize()
+    zero_launches()
+    t1 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = vmap.get_map_visuals(return_blocks=True, return_samples=True,
+                                   return_uncertainty=True, return_mesh=True,
+                                   voxel_resolution=8)
+        torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t1)
+    vis_launches = read_launches()
+    busy_ms = 1e-6 * sum(e.end_ns() - e.start_ns() for e in
+                         prof.profiler.kineto_results.events()
+                         if e.device_type() == torch.autograd.DeviceType.CUDA)
+    kept = (np.array_equal(vmap.updated_slots, slots_before)
+            and torch.equal(vmap._updated_dev, dev_before))
+    net_in, sdf, std, pos = vmap.decode_samples(8)
+    ref = mlp.decoder_forward_plain(net_in, vmap.model.decoder.mats)
+    err = max(float((sdf - ref[:, 0]).abs().max()), float((std - ref[:, 1]).abs().max()))
+    n_samples = len(out["samples"][0]["points"])
+    print(f"visuals: get_map_visuals (blocks, samples, uncertainty, mesh; voxel_resolution "
+          f"8) on {int(vmap.state.n_occupied)} voxels: {n_samples} samples, "
+          f"{len(out['mesh'][0])} triangles, {len(out['blocks'][0]['lines'])} block edges; "
+          f"{busy_ms:.3f} ms of device time, {host_ms:.1f} ms host; launches {vis_launches}; "
+          f"samples' sdf, std against decoder_forward_plain {err:.3e} (tol {TOL_MLP}); "
+          f"updated-slot accumulators kept bitwise: {kept} ({name})", flush=True)
+    if not err <= TOL_MLP:
+        fail(f"visuals: samples differ from decoder_forward_plain by {err}")
+    if not kept:
+        fail("visuals: get_map_visuals changed the live mesher's updated-slot accumulators")
+    if n_samples != len(pos) or n_samples == 0 or len(out["mesh"][0]) == 0:
+        fail(f"visuals: {n_samples} samples of {len(pos)}, {len(out['mesh'][0])} triangles")
+    if vis_launches["decoder_forward"] <= 0:
+        fail("visuals: decoder_forward was not launched")
+
+    # LM: the keyframe at frame VISUALS_FRAMES - 1, in the world frame
+    pts, _, mask = pipe.tracker.last_processed_pc
+    world = pts[mask] @ pipe.tracker.last_R.T + pipe.tracker.last_t
+    world = world[::max(1, -(-len(world) // LM_POINTS))][:LM_POINTS]
+    wrong = Isometry.from_twist(np.asarray(LM_XI))
+    obs = ((world - torch.as_tensor(wrong.t, dtype=torch.float32, device=dev))
+           @ torch.as_tensor(wrong.q.rotation_matrix, dtype=torch.float32, device=dev))
+    if len(obs) < 1024:
+        fail(f"lm: {len(obs)} points in the keyframe")
+    ones = torch.ones(len(obs), dtype=torch.bool, device=dev)
+    eye, zero = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+
+    def lm(decoder, n_iters=LM_ITERS):
+        return track_points_lm(vmap.state, vmap.cfg, decoder, obs, ones, eye, zero,
+                               n_iters=n_iters, bound_min=vmap.bound_min)
+
+    lm(vmap.model.decoder, 2)                   # warm-up (cuSOLVER's handle)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    zero_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        start.record()
+        R, t, energy = lm(vmap.model.decoder)
+        end.record()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    end.synchronize()
+    lm_launches = read_launches()
+    ms_iter = start.elapsed_time(end) / LM_ITERS
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:      # the kernels it runs
+        lm(vmap.model.decoder)
+        torch.cuda.synchronize()
+    kernels_iter = sum(1 for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == torch.autograd.DeviceType.CUDA
+                       and not e.name().startswith(("Memcpy", "Memset"))) / LM_ITERS
+    Rp, tp, energy_p = lm(PlainDecoder(vmap.model.decoder))
+    err_true = _pose_err(R, t, wrong)
+    err_plain = _pose_err(R, t, Isometry.from_matrix(Rp.double().cpu().numpy(),
+                                                     tp.double().cpu().numpy(), ortho=True))
+    print(f"lm: {len(obs)} points of the frame-{VISUALS_FRAMES - 1} keyframe, {LM_ITERS} "
+          f"iterations under sync debug mode 'error': {ms_iter:.4f} ms an iteration (CUDA "
+          f"events); pose error against the truth {1e3 * err_true[0]:.3f} mm, "
+          f"{err_true[1]:.4f} deg; against the plain decoder's run {1e3 * err_plain[0]:.4f} "
+          f"mm, {err_plain[1]:.5f} deg; energy {float(energy):.6f}, plain "
+          f"{float(energy_p):.6f}; {kernels_iter:.1f} device kernels an iteration in a "
+          f"trace; launches {lm_launches} ({name})", flush=True)
+    if not (err_true[0] < 0.01 and err_true[1] < 1.0):
+        fail(f"lm: pose error {err_true} against the truth (1 cm, 1 degree)")
+    if not (err_plain[0] < 1e-3 and err_plain[1] < 0.05):
+        fail(f"lm: pose error {err_plain} against the plain decoder's run (1 mm, 0.05 degree)")
+    for k in ("decoder_forward", "decoder_forward_grad"):
+        if lm_launches[k] != LM_ITERS:
+            fail(f"lm: {lm_launches[k]} {k} launches, not one an iteration ({LM_ITERS})")
+    print(f"visuals and lm phases: {time.perf_counter() - t0:.2f} s wall", flush=True)
+    return vis_launches, lm_launches, dict(visuals_busy_ms=busy_ms, lm_ms_iter=ms_iter,
+                                           lm_kernels_iter=kernels_iter)
+
+
+def tp_phase():
+    """The decoder's ``tp`` layout over two NCCL ranks (``tools/tp_check``),
+    where the host has two cards; one card has nothing to shard."""
+    import torch
+
+    from nerf_fusion_tpu_torch.tools import tp_check
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"tp: skipped, {n} CUDA device (the tp layout needs two ranks on two cards)",
+              flush=True)
+        return
+    t0 = time.perf_counter()
+    res = tp_check.main(["--tp", "2", "--device", "cuda"])
+    print(f"tp: 2 NCCL ranks within {res['err']:.3e} of one process "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+
+
 def probe_path(label: str, probe):
     """A probe module (the gather or the frontend probe) through its entry
     point, launch counters zeroed."""
@@ -1770,7 +2069,8 @@ def check_launches(paths: dict):
         "probe": ("row_gather", "row_gather_c1", "lane_gather"),
         "train": ("decoder_forward", "encoder_forward"),
         "scene": ("decoder_forward", "encoder_forward", "stencil_frontend"),
-        "model_layer": ("decoder_forward",),
+        "model_layer": ("decoder_forward",), "vis": fusion,
+        "visuals": ("decoder_forward",), "lm": ("decoder_forward", "decoder_forward_grad"),
         "frontend_probe": ("stencil_count", "stencil_normals", "stencil_frontend"),
     }
     for label, names in required.items():
@@ -1779,8 +2079,8 @@ def check_launches(paths: dict):
                 fail(f"kernel {name} was not launched on the {label} path")
     # the warps gather inside the photometric kernel and the selection in
     # select_gather: the row gather runs on the probe only
-    for label in ("dense", "fast", "dense_det", "fpc19", "refine", "mesh_fast", "async",
-                  "hash_box", "lrkt", "lrkt_fast", "scannet_scale"):
+    for label in ("dense", "fast", "dense_det", "fpc19", "vis", "refine", "mesh_fast",
+                  "async", "hash_box", "lrkt", "lrkt_fast", "scannet_scale"):
         if any(paths[label]["row_gather_by_width"].values()):
             fail(f"row_gather ran on the {label} path: {paths[label]['row_gather_by_width']}")
     for c in (1, 2, 4):
@@ -1826,13 +2126,20 @@ def main() -> int:
     # the map's and the box filter's index_add_ atomics differ between runs
     # in the last bits, which GN tracking turns into tenths of a millimetre
     # of ATE (0.33 mm between the dense and fpc19 runs of one call)
+    shutil.rmtree(REPO / "output" / "chip_smoke" / "vis" / "preview", ignore_errors=True)
     with deterministic():
-        paths["dense_det"], dense = fusion_path(dev, "dense_det")
+        paths["dense_det"], dense = fusion_path(dev, "dense_det", after=keep_poses)
         paths["fpc19"], block = fusion_path(dev, "fpc19", "frames_per_call=19")
+        t0 = time.perf_counter()
+        paths["vis"], vis = fusion_path(dev, "vis", argv=VIS_ARGV, after=keep_poses)
+        vis_wall = time.perf_counter() - t0
     for key in ("ate_rmse", "mesh_abs_sdf"):
         if not abs(block[key] - dense[key]) <= 3e-4:
             fail(f"frames_per_call = 19: {key} {block[key]} m against the per-frame "
                  f"run's {dense[key]} m")
+    vis_check(vis, dense, vis_wall)
+    paths["visuals"], paths["lm"], _ = visuals_lm_phase(dev)
+    tp_phase()
     option_paths(dev, paths, dense_res)
     paths["probe"], _ = probe_path("gather", gather_probe)
     paths["frontend_probe"], _ = probe_path("frontend", preprocess_probe)

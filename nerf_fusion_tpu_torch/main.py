@@ -2,7 +2,7 @@
 
     python -m nerf_fusion_tpu_torch.main configs/fusion-synth.yaml \
         [--device cuda|cpu] [--max_frames N] [--output DIR] [--gt_pose 1]
-        [--load_map map.npz] [--profile DIR]
+        [--load_map map.npz] [--profile DIR] [--vis 1 [--vis_interval N]]
 
 Reads the same YAML and ``hyper.json`` as the JAX entry point and writes
 the same ``trajectory.txt``, ``mesh.ply``, ``map.npz`` and ``stats.json``
@@ -11,6 +11,8 @@ A disk reader (a sequence with ``load_frame``) is wrapped in a
 ``PrefetchSequence`` unless the config says ``prefetch: false``; on the GPU
 its frames go up on a side stream unless ``prefetch_upload: false``.
 ``--profile DIR`` writes a ``torch.profiler`` trace of the run there.
+``--vis 1`` writes a mesh, trajectory and voxel-block preview every
+``vis_interval`` frames under ``<output>/preview``.
 """
 
 from __future__ import annotations
@@ -92,8 +94,18 @@ def run(argv=None):
                         help="resume fusion from a saved map.npz")
     parser.add_argument("--profile", type=str, default=None,
                         help="write a torch.profiler trace of the run to this directory")
+    parser.add_argument("--vis_interval", type=int, default=None,
+                        help="with --vis 1: frames between previews (default: the "
+                             "config's vis_interval, else meshing_interval)")
     args = parser.parse_args(argv)
+    if args.vis_interval is None:       # the flag shadows a config's own key
+        args.vis_interval = getattr(exp_util.parse_config_yaml(Path(args.hyper)),
+                                    "vis_interval", None)
     logging.basicConfig(level=logging.INFO)
+    if getattr(args, "vis", False):
+        logging.info("Headless visualization: periodic mesh/trajectory/voxel-block "
+                     "previews every %s frames under %s/preview",
+                     args.vis_interval or args.meshing_interval, args.output)
     # f32 products everywhere: the tracker's Jacobians need the digits
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

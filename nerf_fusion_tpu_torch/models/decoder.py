@@ -56,6 +56,11 @@ class Decoder(nn.Module):
         out = mlp.decoder_forward(net_in.contiguous(), self.packed, self.mats)
         return out[:, 0:1], out[:, 1:2]
 
+    def forward_grad(self, net_in: torch.Tensor):
+        """(N, 32) -> ((N, 2) [sdf, std], (N, 3) d sdf / d net_in[:, 29:32]):
+        the ``decoder_forward_grad`` kernel."""
+        return mlp.decoder_forward_grad(net_in.contiguous(), self.packed, self.mats)
+
     def differentiable(self, net_in: torch.Tensor) -> torch.Tensor:
         """(N, 32) -> (N, 2) [sdf, std] under autograd in the input
         (``mlp.DecoderFn``: the backward is the ``decoder_vjp`` kernel)."""

@@ -10,6 +10,11 @@ Counterparts of the JAX package's ``ops/imgproc.py``:
     statistics in plain PyTorch.  They are the CPU path of the stencil
     kernels (``ops.stencil``); pixels outside the image count as invalid.
   * ``box_filter_points_exact`` sort-based voxel-grid mean downsample
+  * ``bilateral_depth_filter``  edge-preserving 5x5 depth smoothing (wraps at
+    the border, as the JAX version's ``jnp.roll`` does)
+  * ``sensor_noise_weight``     per-pixel confidence of the sensor noise model
+  * ``radius_outlier_mask_exact`` the exact KD-tree radius-outlier mask on the
+    host (scipy), the oracle of the windowed count
   * ``rgb_odometry``            dense photometric residual + 6-DoF Jacobian
   * ``select_photometric_pixels`` / ``rgb_odometry_sparse``: the sparse
     photometric term (top-k gradient pixels once per frame, then one k-row
@@ -94,6 +99,53 @@ def resize_half_nearest(img: torch.Tensor) -> torch.Tensor:
     index).  Contract: a positive image with NaN invalids (a depth map)."""
     z = torch.where(torch.isfinite(img), img, torch.zeros_like(img))[::2, ::2]
     return torch.where(z > 0.0, z, torch.full_like(z, float("nan")))
+
+
+def bilateral_depth_filter(depth: torch.Tensor, radius: int = 2,
+                           sigma_space: float = 1.5, sigma_depth_factor: float = 0.05):
+    """Edge-preserving (2 radius + 1)^2 depth smoothing with a range sigma
+    that grows with depth; NaN depths stay NaN.  Neighbours wrap around the
+    image border (``torch.roll``, the JAX version's ``jnp.roll``)."""
+    valid = torch.isfinite(depth)
+    d0 = torch.where(valid, depth, torch.zeros_like(depth))
+    acc = torch.zeros_like(depth)
+    wacc = torch.zeros_like(depth)
+    sigma_d = sigma_depth_factor * torch.clamp_min(depth, 0.5)
+    for dy in range(-radius, radius + 1):
+        for dx in range(-radius, radius + 1):
+            dn = torch.roll(d0, (dy, dx), dims=(0, 1))
+            vn = torch.roll(valid, (dy, dx), dims=(0, 1))
+            w = vn * torch.exp(-(dx * dx + dy * dy) / (2 * sigma_space ** 2)
+                               - (dn - d0) ** 2 / (2 * sigma_d ** 2))
+            acc += w * dn
+            wacc += w
+    out = acc / torch.clamp_min(wacc, 1e-9)
+    return torch.where(valid, out, torch.full_like(out, float("nan")))
+
+
+def sensor_noise_weight(depth: torch.Tensor, normals: torch.Tensor,
+                        valid: torch.Tensor) -> torch.Tensor:
+    """Per-pixel observation confidence in (0, 1] from the Kinect axial noise
+    model sigma_z = 0.0012 + 0.0019 (z - 0.4)^2 / cos(theta): sigma at 1 m
+    head-on over sigma_z, 0 off ``valid``.  ``normals``: (3, H, W) in the
+    camera frame (its z component is cos(theta))."""
+    cos_t = torch.clamp(torch.abs(normals[2]), 0.05, 1.0)
+    sigma = 0.0012 + 0.0019 * (depth - 0.4) ** 2 / cos_t
+    sigma_ref = 0.0012 + 0.0019 * 0.36
+    w = torch.clamp(sigma_ref / torch.clamp_min(sigma, 1e-6), 0.0, 1.0)
+    return torch.where(valid, w, torch.zeros_like(w))
+
+
+def radius_outlier_mask_exact(points: np.ndarray, nb_points: int = 16,
+                              radius: float = 0.05) -> np.ndarray:
+    """Exact radius-outlier mask on the host (a KD-tree): keep a point iff at
+    least ``nb_points`` others lie within ``radius``.  The oracle the
+    windowed ``radius_neighbor_count`` is checked against."""
+    from scipy.spatial import cKDTree
+
+    tree = cKDTree(points)
+    counts = tree.query_ball_point(points, radius, return_length=True)
+    return np.asarray(counts) >= nb_points + 1      # the ball holds the point itself
 
 
 def window_stats(pts: torch.Tensor, valid: torch.Tensor, radius: float,

@@ -14,6 +14,9 @@ semantics, same triangle order):
   * triangles are compacted by prefix-sum rank into a fixed budget, in
     (cell, triangle) order, each tagged with its voxel's flat id.
 
+``dense_marching_cubes`` is the host's debug mesher of a dense numpy
+field on the same tables.
+
 The JAX version's TPU layout tricks (blend matrices on the matrix unit,
 complex packing, one-hot table matmuls) are plain gathers here: they
 select and weight the same values.
@@ -214,3 +217,42 @@ def marching_cubes_sparse(indexer, batch_map, positions_b, batch_valid,
     valid = torch.arange(budget, device=dev) < n_tri
     return MCResult(out_verts[:budget], out_std[:budget], out_fid[:budget],
                     valid, n_tri, cells_dropped)
+
+
+def dense_marching_cubes(field: np.ndarray, origin=(0.0, 0.0, 0.0), spacing=1.0):
+    """Dense-grid marching cubes on the host (numpy) over a scalar field, on
+    the tables of the sparse version; a debug and test utility.
+    :param field: (X, Y, Z) SDF samples (inside < 0).
+    :return: (T, 3, 3) triangles, wound outward (normals toward sdf > 0).
+    """
+    X, Y, Z = field.shape
+    inside = field < 0
+    cfg = np.zeros((X - 1, Y - 1, Z - 1), np.int32)
+    for bit, (dx, dy, dz) in enumerate(CORNERS.astype(int)):
+        cfg |= inside[dx:X - 1 + dx, dy:Y - 1 + dy, dz:Z - 1 + dz] << bit
+    tris = []
+    for x, y, z in np.argwhere((cfg > 0) & (cfg < 255)):
+        vals = np.array([field[x + int(c[0]), y + int(c[1]), z + int(c[2])]
+                         for c in CORNERS])
+        row = TRI_TABLE[cfg[x, y, z]]
+        everts = {}
+        for e in set(row[row >= 0].tolist()):
+            a, b = EDGE_CORNERS[e]
+            va, vb = vals[a], vals[b]
+            if abs(va) < 1e-12:
+                t = 0.0
+            elif abs(vb) < 1e-12:
+                t = 1.0
+            elif abs(vb - va) < 1e-12:
+                t = 0.0
+            else:
+                t = va / (va - vb)
+            everts[e] = CORNERS[a] + t * (CORNERS[b] - CORNERS[a])
+        for i in range(0, len(row), 3):
+            if row[i] < 0:
+                break
+            tri = np.stack([everts[row[i]], everts[row[i + 1]], everts[row[i + 2]]])
+            tris.append((tri + np.array([x, y, z])) * spacing + np.asarray(origin))
+    if not tris:
+        return np.zeros((0, 3, 3))
+    return np.stack(tris)

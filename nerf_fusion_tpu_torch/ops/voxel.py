@@ -117,6 +117,31 @@ def masked_segment_sum(values: torch.Tensor, seg_ids: torch.Tensor,
     return out[:num_segments]
 
 
+def masked_segment_max(values: torch.Tensor, seg_ids: torch.Tensor,
+                       valid: torch.Tensor, num_segments: int,
+                       fill_value=None) -> torch.Tensor:
+    """Segment-max of ``values`` rows into ``num_segments`` buckets; invalid
+    rows go to a discard bucket.  An empty bucket holds the identity of the
+    max (``jax.ops.segment_max``'s: -inf for a float type, the lowest value
+    for an integer one), or ``fill_value`` where one is given.  No path of
+    the loop calls it (the reference's groupby-max, exported but unused)."""
+    seg = torch.where(valid, seg_ids, torch.full_like(seg_ids, num_segments)).long()
+    if values.dtype.is_floating_point:
+        identity = float("-inf")
+    else:
+        identity = torch.iinfo(values.dtype).min
+    out = torch.full((num_segments + 1,) + tuple(values.shape[1:]), identity,
+                     dtype=values.dtype, device=values.device)
+    idx = seg.reshape((-1,) + (1,) * (values.dim() - 1)).expand_as(values)
+    out = out.scatter_reduce(0, idx, values, reduce="amax")[:num_segments]
+    if fill_value is not None:
+        hit = torch.zeros(num_segments + 1, dtype=torch.bool, device=values.device)
+        hit[seg] = True
+        empty = ~hit[:num_segments].reshape((-1,) + (1,) * (values.dim() - 1))
+        out = torch.where(empty, torch.full_like(out, fill_value), out)
+    return out
+
+
 _NEIGHBORS6 = ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0),
                (0, 0, -1), (0, 0, 1))
 

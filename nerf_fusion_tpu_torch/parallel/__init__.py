@@ -14,7 +14,7 @@ step on the whole batch.
 the group's address ``tcp://localhost:<free port>``; world size 1 runs in
 the calling process.  Under ``torchrun`` (``WORLD_SIZE`` in the
 environment) the process joins that group instead.  The ``tp`` layout of
-the JAX package (``shard_decoder_params``) is not ported.
+the JAX package (``shard_decoder_params``) is ``parallel.tp``.
 """
 
 from __future__ import annotations

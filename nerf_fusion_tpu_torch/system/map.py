@@ -10,6 +10,9 @@ decoder kernel (with its input gradient when the query needs one).  The
 state tensors keep the JAX dtypes, so ``map.npz`` files interchange.
 ``SparseVoxelMap.integrate_keyframe(do_optimize=True)`` refines the
 latents after fusing (``system.refine``), in place or on a worker.
+``get_fast_preview_visuals`` and ``get_map_visuals`` give the map's debug
+visuals as the numpy payloads of ``utils.vis`` (voxel blocks, decoded
+sample and uncertainty clouds, a mesh of the whole map).
 """
 
 from __future__ import annotations
@@ -22,7 +25,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops import mlp
 from ..ops import voxel as vox
 from .worker import Worker
 
@@ -206,7 +208,7 @@ def get_sdf(state: MapState, cfg: MapConfig, decoder, xyz: torch.Tensor,
     rel = xyz_norm - grid.to(torch.float32) - 0.5
     x = torch.cat([latent, rel], dim=1)
     if with_grad:
-        out, grad = mlp.decoder_forward_grad(x, decoder.packed, decoder.mats)
+        out, grad = decoder.forward_grad(x)
         return out[:, 0], out[:, 1], valid, grad
     sdf, std = decoder(x)
     return sdf[:, 0], std[:, 0], valid
@@ -225,6 +227,8 @@ class SparseVoxelMap:
     reads ``optim_n_iters`` (10) and ``code_reg_lambda`` (1e-2) from the
     mapping args and draws its jitter from a generator seeded with the
     mapping's ``seed`` + 1234; ``refine_log`` holds one entry a refinement.
+    ``mesher``: the live mesher of the fusion loop, which the pipeline
+    attaches (``get_map_visuals`` joins its async extraction first).
     """
 
     def __init__(self, model, args, latent_dim: int, device):
@@ -245,6 +249,7 @@ class SparseVoxelMap:
         self.code_reg_lambda = float(getattr(args, "code_reg_lambda", 1e-2))
         self.refine_log = []
         self.refine_merged = 0          # async results merged
+        self.mesher = None
         logging.info("Map size Nx=%d Ny=%d Nz=%d (capacity %d voxels)",
                      *self.cfg.n_xyz, self.cfg.latent_capacity)
 
@@ -259,6 +264,12 @@ class SparseVoxelMap:
     def _mark_updated(self, mask: torch.Tensor):
         with self._upd_lock:
             self._updated_dev = mask if self._updated_dev is None else self._updated_dev | mask
+
+    @property
+    def bound_max(self) -> np.ndarray:
+        """The map's upper corner on the host (float64; ``bound_min`` is the
+        lower one as a device tensor)."""
+        return np.asarray(self.cfg.bound_min) + np.asarray(self.cfg.n_xyz) * self.cfg.voxel_size
 
     def integrate_keyframe(self, points, normals, valid=None, pose=None,
                            do_optimize: bool = False, async_optimize: bool = False):
@@ -349,6 +360,12 @@ class SparseVoxelMap:
                         "nll_last": nll[-1] if nll else None})
         return out
 
+    def get_sdf(self, xyz, with_grad: bool = False):
+        """``get_sdf`` on the map's state at world points ``xyz`` (N, 3)."""
+        xyz = torch.as_tensor(xyz, dtype=torch.float32, device=self.device)
+        return get_sdf(self.state, self.cfg, self.model.decoder, xyz, self.bound_min,
+                       with_grad=with_grad)
+
     def sync_updated(self):
         """Fold the device-side updated-voxel accumulator into the host set
         (one copy to the host)."""
@@ -382,3 +399,91 @@ class SparseVoxelMap:
                 raise ValueError(f"map state {name}: {tuple(new.shape)} {new.dtype} does "
                                  f"not fit the map's {tuple(old.shape)} {old.dtype}")
             old.copy_(new)
+
+    # -- debug visuals (numpy payloads of utils.vis) -------------------------
+    def _voxel_xyz(self, flat_ids: np.ndarray) -> np.ndarray:
+        """Grid coordinates (int64) of flat voxel ids, on the host."""
+        _, ny, nz = self.cfg.n_xyz
+        flat_ids = flat_ids.astype(np.int64)
+        return np.stack([flat_ids // (ny * nz), (flat_ids // nz) % ny, flat_ids % nz], -1)
+
+    def get_fast_preview_visuals(self):
+        """Wireframes of all allocated voxel blocks and of the map's bound,
+        as one merged line set."""
+        from ..utils import vis
+
+        occupied = self.state.positions.cpu().numpy()
+        bound_min = np.asarray(self.cfg.bound_min)
+        start = self._voxel_xyz(occupied[occupied >= 0]) * self.cfg.voxel_size + bound_min
+        boxes = [vis.wireframe_bbox(s, s + self.cfg.voxel_size) for s in start]
+        boxes.append(vis.wireframe_bbox(bound_min, self.bound_max, color_id=4))
+        return [vis.merged_linesets(boxes)]
+
+    def decode_samples(self, voxel_resolution: int = 8):
+        """The decoder on a (voxel_resolution)^3 lattice in each confident
+        voxel (the mesher's sample lattice): (net_in (N, 32), sdf (N,),
+        std (N,)) on the device and the samples' world positions (N, 3) on
+        the host (float64), or None if no voxel is confident."""
+        from .mesher import _sample_offsets
+
+        st = self.state
+        slots = torch.nonzero((st.positions >= 0)
+                              & (st.obs_count > self.cfg.ignore_count_th))[:, 0]
+        if len(slots) == 0:
+            return None
+        offs = _sample_offsets(voxel_resolution // 2)
+        B, S = len(slots), len(offs)
+        net_in = torch.cat([st.latents[slots].repeat_interleave(S, dim=0),
+                            torch.as_tensor(offs, device=self.device).repeat(B, 1)], dim=1)
+        sdf, std = self.model.decoder(net_in)
+        base = self._voxel_xyz(st.positions[slots].cpu().numpy())
+        pos = (np.repeat(base, S, axis=0) + np.tile(offs + 0.5, (B, 1))) \
+            * self.cfg.voxel_size + np.asarray(self.cfg.bound_min)
+        return net_in, sdf[:, 0], std[:, 0], pos
+
+    def get_map_visuals(self, return_blocks=False, return_samples=False,
+                        return_uncertainty=False, return_mesh=False,
+                        sample_range=None, voxel_resolution: int = 8):
+        """Debug visuals: {"blocks", "samples", "uncertainty", "mesh"}, each a
+        list (empty unless asked for).  Samples and uncertainty are point
+        clouds of ``decode_samples`` coloured by sdf and std over
+        ``sample_range`` (the sdf's range by default); the mesh is a full
+        extraction of the map by a mesher of its own, which leaves the live
+        mesher's updated-voxel accumulators as they were."""
+        from ..utils import vis
+        from .mesher import Mesher
+
+        out = {"blocks": [], "samples": [], "uncertainty": [], "mesh": []}
+        if return_blocks:
+            out["blocks"] = self.get_fast_preview_visuals()
+        if return_mesh:
+            if self.mesher is not None:
+                self.mesher.join_async()
+            # the no_cache extraction takes (clears) both accumulators:
+            # snapshot them and OR them back (a plain restore could lose an
+            # integration's update made meanwhile; |= only re-meshes more)
+            with self._upd_lock:
+                saved_slots = self.updated_slots.copy()
+                saved_dev = self._updated_dev
+            try:
+                out["mesh"] = [Mesher(self).extract(voxel_resolution, no_cache=True)]
+            finally:
+                with self._upd_lock:
+                    self.updated_slots |= saved_slots
+                    if saved_dev is not None:
+                        self._updated_dev = (saved_dev if self._updated_dev is None
+                                             else self._updated_dev | saved_dev)
+        if return_samples or return_uncertainty:
+            dec = self.decode_samples(voxel_resolution)
+            if dec is None:
+                return out
+            _, sdf, std, pos = dec
+            sdf, std = sdf.cpu().numpy(), std.cpu().numpy()
+            lo, hi = sample_range if sample_range is not None else (sdf.min(), sdf.max())
+            if return_samples:
+                t = np.clip((sdf - lo) / max(hi - lo, 1e-9), 0, 1)
+                out["samples"] = [vis.pointcloud(pos, cfloat=t)]
+            if return_uncertainty:
+                t = np.clip((std - lo) / max(hi - lo, 1e-9), 0, 1)
+                out["uncertainty"] = [vis.pointcloud(pos, cfloat=t)]
+        return out

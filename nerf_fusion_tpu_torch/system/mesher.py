@@ -44,6 +44,7 @@ import torch
 
 from ..ops import voxel as voxops
 from ..ops.marching_cubes import marching_cubes_sparse
+from ..utils import vis
 
 MESH_CHUNK = 512
 _TAKE = object()     # _dispatch_fused: take the updated mask from the map
@@ -537,7 +538,7 @@ class Mesher:
         if color_by_std and len(verts):
             lo, hi = (stds.min(), stds.max()) if std_range is None else std_range
             tcol = np.clip((stds - lo) / max(hi - lo, 1e-9), 0, 1)
-            colors = (_jet(tcol) * 255).astype(np.uint8)
+            colors = (vis.jet(tcol) * 255).astype(np.uint8)
         vfields = [("x", "<f4"), ("y", "<f4"), ("z", "<f4")]
         if colors is not None:
             vfields += [("red", "u1"), ("green", "u1"), ("blue", "u1")]
@@ -562,10 +563,3 @@ class Mesher:
             f.write(vrec.tobytes())
             f.write(frec.tobytes())
 
-
-def _jet(t: np.ndarray) -> np.ndarray:
-    """Minimal jet colormap, t in [0, 1] -> (N, 3) rgb."""
-    r = np.clip(1.5 - np.abs(4 * t - 3), 0, 1)
-    g = np.clip(1.5 - np.abs(4 * t - 2), 0, 1)
-    b = np.clip(1.5 - np.abs(4 * t - 1), 0, 1)
-    return np.stack([r, g, b], axis=-1)

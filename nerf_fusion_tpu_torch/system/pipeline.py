@@ -25,6 +25,13 @@ cadence frame, a frame that needs a set pose and the end of the run flush
 the buffer first, a partial buffer frame by frame.  On the card a block is
 K frames of graph replays, each with its host reads of the GN done flag,
 so it is no faster than K single frames; the trajectory is the same.
+
+``vis: true`` (with an output directory) writes a headless preview every
+``vis_interval`` frames (``meshing_interval`` by default) under
+``<output>/preview``: the mesh as it stands (after the async extraction,
+if one runs), the trajectory so far and the voxel blocks' wireframes
+(``write_preview``; its time is the ``vis_preview`` stage).
+``verbose_timing: true`` logs each frame's track, integrate and mesh ms.
 """
 
 from __future__ import annotations
@@ -59,8 +66,10 @@ class FusionPipeline:
             reuse_latent_eps=float(getattr(args, "mesh_reuse_latent_eps", 0.0)),
             mesh_fast=self.mesh_fast)
         budget = point_budget or int(getattr(args.mapping, "points_capacity", 16384))
+        self.map.mesher = self.mesher
         self.tracker = SDFTracker(self.map, args.tracking, point_budget=budget)
         self.timer = StageTimer()
+        self.verbose_timing = bool(getattr(args, "verbose_timing", False))
         self.frames_per_call = int(getattr(args, "frames_per_call", 1))
         if self.frames_per_call < 1:
             raise ValueError(f"frames_per_call must be >= 1, got {self.frames_per_call}")
@@ -108,7 +117,7 @@ class FusionPipeline:
         self.timer.start("track")
         pose = self.tracker.track_camera(frame.rgb, frame.depth, frame.calib,
                                          set_pose=set_pose, depth_cut=depth_cut)
-        self.timer.stop("track")
+        self._log_stage(frame_id, "track")
 
         if frame_id % self.args.integrate_interval == 0:
             pts, nrm, mask = self.tracker.last_processed_pc
@@ -116,7 +125,7 @@ class FusionPipeline:
             self.map.integrate_keyframe(pts, nrm, valid=mask, pose=pose,
                                         do_optimize=self.do_optimize,
                                         async_optimize=self.run_async)
-            self.timer.stop("integrate")
+            self._log_stage(frame_id, "integrate")
         if frame_id % self.args.meshing_interval == 0:
             self.timer.start("mesh")
             # the fetch is deferred to the next read of the mesh (sync), or
@@ -124,19 +133,47 @@ class FusionPipeline:
             self.mesher.extract(self.args.resolution,
                                 max_std=getattr(self.args, "max_std", 0.15),
                                 extract_async=self.run_async, materialize=False)
-            self.timer.stop("mesh")
+            self._log_stage(frame_id, "mesh")
         return pose
+
+    def _log_stage(self, frame_id: int, stage: str):
+        """Stop the stage's timer; with ``verbose_timing`` log its host ms
+        (the enqueue, unless the stage waited on the device)."""
+        dt = self.timer.stop(stage)
+        if self.verbose_timing:
+            logging.info("frame %d %s %.0f ms", frame_id, stage, 1e3 * dt)
 
     def trajectory(self):
         return self.tracker.pose_history()
 
+    def write_preview(self, preview_dir, frame_id: int):
+        """The headless preview of frame ``frame_id``: ``mesh_<id>.ply`` (the
+        mesher's triangles, after its async extraction if one runs),
+        ``trajectory_<id>.txt`` (TUM, every frame so far) and
+        ``blocks_<id>.ply`` (the allocated voxels' wireframes and the map's
+        bound as a PLY with edges).  Each reads the device on the host."""
+        from ..utils import vis
+
+        preview_dir = Path(preview_dir)
+        preview_dir.mkdir(parents=True, exist_ok=True)
+        self.mesher.save_ply(preview_dir / f"mesh_{frame_id:05d}.ply")
+        save_tum_trajectory(preview_dir / f"trajectory_{frame_id:05d}.txt", self.trajectory())
+        vis.save_lineset_ply(preview_dir / f"blocks_{frame_id:05d}.ply",
+                             self.map.get_fast_preview_visuals()[0])
+
     def run(self, sequence, use_gt_pose: bool = False, max_frames: int = None,
             output_dir=None):
         n = len(sequence) if max_frames is None else min(max_frames, len(sequence))
+        vis_on = bool(getattr(self.args, "vis", False)) and output_dir is not None
+        vis_interval = int(getattr(self.args, "vis_interval", None)
+                           or self.args.meshing_interval)
         for i in range(n):
             frame = next(sequence)
             logging.info("Frame ID = %d", i)
             self.process_frame(frame, i, use_gt_pose=use_gt_pose)
+            if vis_on and i % vis_interval == 0 and i > 0:
+                with self.timer.scope("vis_preview"):
+                    self.write_preview(Path(output_dir) / "preview", i)
         self.flush_frames()
         with self.timer.scope("join"):
             self.mesher.join_async()

@@ -35,10 +35,15 @@ chained to world coordinates as (1 / std) grad / voxel_size and to the
 twist of the last pose: J = [dS/dx R_last, (delta p) x (dS/dx R_last)].
 The photometric term of a level is one ``ops.photometric.photometric_hg``
 call: one kernel launch on the card.
+
+``track_points_lm`` is the SDF-only Levenberg-Marquardt point tracker (no
+path of the loop calls it): a fixed number of iterations with the pose,
+damping and energy on the device, so the host reads nothing in its loop.
 """
 
 from __future__ import annotations
 
+import gc
 from typing import NamedTuple
 
 import numpy as np
@@ -201,6 +206,74 @@ def level_intrinsics(tcfg: TrackerConfig, fx, fy, cx, cy, device) -> dict:
     return out
 
 
+def track_points_lm(map_state, map_cfg, decoder, pts, mask, init_R, init_t,
+                    n_iters: int = 20, damping_init: float = 1e-4, lm_eps4: float = 0.0,
+                    lm_ldown: float = 9.0, lm_lup: float = 11.0, robust_k: float = 5.0,
+                    bound_min=None):
+    """Levenberg-Marquardt on the SDF term alone: the pose (R, t) that puts
+    the points ``pts`` (N, 3) on the map's zero level set.
+
+    Residual r = sdf(R p + t) / std (std held constant), Huber weights at
+    ``robust_k``, masked by ``mask`` and the map's validity.  The pose is
+    perturbed on the left in the world frame, pose <- exp(xi) o pose, so
+    J = [dr/dx, x x dr/dx] with x the world points (not the GN tracker's
+    last-camera frame); dr/dx = (d sdf / d rel) / (std voxel_size) from the
+    decoder's forward-mode gradient (``decoder.forward_grad``, the
+    ``decoder_forward_grad`` kernel on the card).  Each of the ``n_iters``
+    iterations solves (H + damping diag(H) + 1e-12 I) xi = -g, decodes the
+    candidate's energy forward only (``decoder``, the ``decoder_forward``
+    kernel), accepts it if the gain ratio exceeds ``lm_eps4`` and divides
+    or multiplies the damping by ``lm_ldown`` / ``lm_lup`` within [1e-7,
+    1e7].  Everything stays on the device and nothing is read on the host.
+    ``bound_min``: ``map_cfg.bound_min`` on the device (a copy from the host
+    if None).  :return: (R, t, energy) device tensors.
+    """
+    dev = pts.device
+    if bound_min is None:
+        bound_min = torch.as_tensor(map_cfg.bound_min, dtype=torch.float32, device=dev)
+    pts = pts.to(torch.float32)
+    ridge = 1e-12 * torch.eye(6, dtype=torch.float32, device=dev)
+
+    def residuals(R, t, with_jacobian: bool):
+        pw = st.transform_points(R, t, pts)
+        got = get_sdf(map_state, map_cfg, decoder, pw, bound_min, with_grad=with_jacobian)
+        sdf, std, valid = got[:3]
+        r = sdf / std
+        m = (mask & valid).to(r.dtype)
+        w = photometric.robust_weight(r, "huber", robust_k) * m
+        energy = torch.sum(r * w * r) / torch.clamp_min(m.sum(), 1.0)
+        if not with_jacobian:
+            return energy
+        Jr = ((torch.ones_like(std) / std)[:, None] * got[3] / map_cfg.voxel_size).T
+        x = pw.T
+        Jp = torch.stack([x[1] * Jr[2] - x[2] * Jr[1],
+                          x[2] * Jr[0] - x[0] * Jr[2],
+                          x[0] * Jr[1] - x[1] * Jr[0]], 0)
+        return r, w, torch.cat([Jr, Jp], dim=0), energy           # J (6, M)
+
+    R = init_R.to(torch.float32)
+    t = init_t.to(torch.float32)
+    damping = torch.full((), damping_init, dtype=torch.float32, device=dev)
+    energy = torch.full((), float("inf"), dtype=torch.float32, device=dev)
+    for _ in range(n_iters):
+        r, w, J, energy = residuals(R, t, True)
+        H = (J * w[None, :]) @ J.T
+        g = J @ (w * r)
+        DtD = damping * torch.diag(torch.diagonal(H))
+        xi = torch.linalg.solve_ex(H + DtD + ridge, -g[:, None])[0][:, 0]
+        eR, et = st.se3_exp(xi)
+        nR, nt = st.compose(eR, et, R, t)
+        new_energy = residuals(nR, nt, False)
+        rho_den = torch.clamp_min(torch.sum(xi * (DtD @ xi)) + torch.sum(xi * -g), 1e-12)
+        accept = (energy - new_energy) / rho_den > lm_eps4
+        R = torch.where(accept, nR, R)
+        t = torch.where(accept, nt, t)
+        damping = torch.clamp(torch.where(accept, damping / lm_ldown, damping * lm_lup),
+                              1e-7, 1e7)
+        energy = torch.where(accept, new_energy, energy)
+    return R, t, energy
+
+
 class _Terms(NamedTuple):
     """What the normal equations of one frame read besides the delta pose."""
     map_state: tuple
@@ -328,18 +401,27 @@ class _Graph:
     each replay rewrites).  The capture launches nothing, so its launch
     counts are taken back; ``replay`` adds them once per replay.  The
     capture checks this thread's CUDA calls only: a reader's decode threads
-    run beside it (a capture of the same prelude that passed twice failed
-    once with the capture invalidated, in a run with the prefetcher's
-    threads alive).  It holds ``launches.EXCLUSIVE``, so that no async
-    mesher or refiner launches inside it."""
+    run beside it.  Python's cyclic garbage collector is off during the
+    capture: a collection there destroys the CUDA graphs of an earlier
+    tracker that only a reference cycle still held, and destroying a graph
+    is not permitted while this thread captures (it invalidated a capture
+    of the prelude on the card, once the smoke had run ten pipelines).  It
+    holds ``launches.EXCLUSIVE``, so that no async mesher or refiner
+    launches inside it."""
 
     def __init__(self, fn):
         # no worker thread launches while the counters are diffed
         with launches.EXCLUSIVE:
             before = launches.snapshot()
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-                self.out = fn()
+            gc_on = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                    self.out = fn()
+            finally:
+                if gc_on:
+                    gc.enable()
             self.launches = launches.diff(launches.snapshot(), before)
             launches.add(self.launches, -1)
 
@@ -460,9 +542,14 @@ class SDFTracker:
         self._pose_count = torch.zeros(1, dtype=torch.int64, device=dev)
         self._pose_archive = []
         self._n_archived = 0
-        # device (points, normals, mask) of the last frame; on the card the
-        # captured prelude's outputs, which the next tracked frame rewrites
+        # device (points, normals, mask) and (points, colors, mask) of the
+        # last frame; on the card the captured prelude's outputs, which the
+        # next tracked frame rewrites
         self.last_processed_pc = None
+        self.last_colored_pcd = None
+        # GN evaluations of each group of the last tracked frame (G,), or of
+        # a block's frames (K, G); device int32
+        self.last_iters = None
         self.drop_fracs = []           # device scalars or (K,) vectors
 
     def preprocess(self, rgb, depth, calib, depth_cut=(0.5, 5.0)):
@@ -540,6 +627,7 @@ class SDFTracker:
             if self.n_tracked == 0:
                 raise RuntimeError("first frame needs set_pose (first_iso)")
             out, pre = self._track(rgb, depth, calib, depth_cut)
+            self.last_iters = self.gn.iters.clone()
         return self._record(out, pre)
 
     def _record(self, out, pre):
@@ -549,6 +637,7 @@ class SDFTracker:
         last = out.reshape(-1, 13)[-1]
         pose = (last[:9].view(3, 3), last[9:12])
         self.last_processed_pc = (pre.points, pre.normals, pre.mask)
+        self.last_colored_pcd = (pre.points, pre.colors, pre.mask)
         self.drop_fracs.append(out[..., 12])
         self.all_pd_pose.append(pose)
         self.n_tracked += out.reshape(-1, 13).shape[0]
@@ -566,10 +655,12 @@ class SDFTracker:
         self._spill_pose_log(K)
         rgb_k = torch.as_tensor(rgb_k, device=self.device)
         depth_k = torch.as_tensor(depth_k, device=self.device)
-        outs = []
+        outs, iters = [], []
         for k in range(K):
             out, pre = self._track(rgb_k[k], depth_k[k], calib, depth_cut)
             outs.append(out)
+            iters.append(self.gn.iters.clone())
+        self.last_iters = torch.stack(iters)
         return self._record(torch.stack(outs), pre)
 
     def pose_history(self):

@@ -81,6 +81,22 @@ def compose(Ra, ta, Rb, tb):
     return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta
 
 
+def inverse(R, t):
+    """(R, t)^-1 = (R^T, -R^T t)."""
+    Rt = R.transpose(-1, -2)
+    return Rt, -(Rt @ t[..., None])[..., 0]
+
+
+def se3_log(R, t):
+    """(R (..., 3, 3), t (..., 3)) -> twist (..., 6) with se3_exp(se3_log(T))
+    == T: phi = so3_log(R), and rho solves J_l(phi) rho = t (well
+    conditioned for the small increments of tracking).  ``solve_ex`` checks
+    nothing on the host, so on the card nothing waits for the device."""
+    phi = so3_log(R)
+    rho = torch.linalg.solve_ex(so3_left_jacobian(phi), t[..., None])[0][..., 0]
+    return torch.cat([rho, phi], dim=-1)
+
+
 def transform_points(R: torch.Tensor, t: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply (R, t) to (N, 3) points."""
     return pts @ R.T + t[None, :]

@@ -203,3 +203,54 @@ def test_async_pipeline_with_refinement_cpu():
     assert bool(pipe.map.state.optimized.any())
     assert res["ate_rmse"] < 0.02 and res["mesh_abs_sdf"] < 0.02
     assert res["n_triangles"] > 0 and not res["map"]["overflow"]
+
+
+def test_refinement_finished_before_dispatch_is_merged(model, monkeypatch):
+    """The worker's refinement ends after the merge at the start of the next
+    integration and before its dispatch.  The JAX map drops such a result
+    (``nerf_fusion_tpu/system/map.py``: it collects before integrating, then
+    dispatches over the uncollected job when the refiner is not busy); the
+    port merges it before dispatching: its refined rows are in the state
+    and ``refine_merged`` counts it."""
+    vmap = tmap.SparseVoxelMap(model, dict_to_args({**MAP_ARGS, "encoder_count_th": 20.0,
+                                                    "optim_n_iters": 2}), 29, "cpu")
+    opt = dict(do_optimize=True, async_optimize=True)
+    launches.EXCLUSIVE.acquire()             # the first job waits for it
+    held = True
+    try:
+        vmap.integrate_keyframe(*_plane(0.55, 0))
+        vmap.integrate_keyframe(*_plane(0.55, 1), **opt)
+        assert vmap.refiner.busy()
+        collected = []
+        collect = vmap.refiner.collect
+
+        def recording_collect():
+            res = collect()
+            collected.append(res)
+            return res
+
+        monkeypatch.setattr(vmap.refiner, "collect", recording_collect)
+        fuse = tmap.integrate_keyframe
+
+        def fuse_then_finish(*a, **k):
+            out = fuse(*a, **k)
+            nonlocal held
+            launches.EXCLUSIVE.release()     # the job runs to its end now
+            held = False
+            vmap.refiner.join()
+            return out
+
+        monkeypatch.setattr(tmap, "integrate_keyframe", fuse_then_finish)
+        vmap.integrate_keyframe(*_plane(0.62, 2), **opt)
+    finally:
+        if held:
+            launches.EXCLUSIVE.release()
+    # the first collect (before integrating) found the job running; the one
+    # before the dispatch merged it
+    assert collected[0] is None and collected[1] is not None
+    res = collected[1]
+    assert vmap.refine_merged == 1 and bool(res.refined.any())
+    assert bool(vmap.state.optimized[res.refined].all())
+    assert vmap.refiner.future is not None           # the next job was dispatched
+    vmap.join_refiner()
+    assert vmap.refine_merged == 2

@@ -74,6 +74,19 @@ def test_block_tracking_matches_per_frame():
     assert shapes == [(), (8,)]
     ptrs = [d.data_ptr() for d in p1.tracker.drop_fracs]
     assert len(set(ptrs)) == len(ptrs)
+    # last_iters: a frame's GN evaluations per group (G,), a block's (K, G)
+    frames = [SyntheticSequence(n_frames=n + 2, width=160, height=120).render_frame(k)
+              for k in (n, n + 1)]
+    per_frame = []
+    for f in frames:
+        p1.tracker.track_camera(f.rgb, f.depth, f.calib)
+        per_frame.append(p1.tracker.last_iters)
+    p8.tracker.track_camera_block(torch.stack([torch.as_tensor(f.rgb) for f in frames]),
+                                  torch.stack([torch.as_tensor(f.depth) for f in frames]),
+                                  frames[0].calib)
+    G = len(p8.tracker.tcfg.iter_config)
+    assert tuple(per_frame[0].shape) == (G,) and tuple(p8.tracker.last_iters.shape) == (2, G)
+    assert torch.equal(p8.tracker.last_iters, torch.stack(per_frame))
 
 
 def test_run_reports_the_map_and_check_overflow_raises():

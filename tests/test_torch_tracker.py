@@ -350,3 +350,40 @@ def test_gauss_newton_sparse_matches_jax(setup):
     assert list(np.asarray(jiters)) == titers.tolist()
     assert np.abs(tR.numpy() - np.asarray(jR)).max() < 1e-4
     assert np.abs(tt.numpy() - np.asarray(jt)).max() < 1e-4
+
+
+def test_last_iters_and_colored_pcd(setup):
+    """``SDFTracker`` on the frame pair: ``last_iters`` (the GN evaluations
+    of each group, kept on the device) equals JAX's per-group counts of the
+    staged schedule on the same pair, and ``last_colored_pcd`` holds the
+    frontend's points, colours and mask of the tracked frame."""
+    from nerf_fusion_tpu_torch.system.frontend import preprocess_frame
+    from nerf_fusion_tpu_torch.utils.se3 import Isometry
+
+    s = setup
+    c = s["c"]
+    seq = SyntheticSequence(n_frames=10, width=160, height=120)
+    f0, f1 = seq.render_frame(0), seq.render_frame(1)
+    pre_kw = dict(outlier_radius=0.3, outlier_min_nb=6, normal_radius=0.4)
+    vmap = tmap.SparseVoxelMap(s["tm"], dict_to_args(MAP_ARGS), 29, "cpu")
+    vmap._assign(s["ts"])
+    tr = TT.SDFTracker(vmap, dict_to_args({**TRACK_ARGS, "preprocess": pre_kw}),
+                       point_budget=4096, gn_point_budget=2048)
+    tr.track_camera(f0.rgb, f0.depth, c, set_pose=Isometry.from_matrix(
+        s["R0"].astype(np.float64), s["t0"].astype(np.float64), ortho=True))
+    assert tr.last_iters is None                  # a set pose runs no GN
+    tr.track_camera(f1.rgb, f1.depth, c)
+    k = 2048
+    _, _, jiters = JT.track_gauss_newton(
+        s["js"], s["jcfg"], s["jm"].decoder_params, s["jm"].decoder_config, s["jtc"],
+        s["p0"].pyramid, s["p1"].pyramid, s["p1"].points[:k], s["p1"].mask[:k],
+        jnp.asarray(s["R0"]), jnp.asarray(s["t0"]), jnp.eye(3), jnp.zeros(3),
+        c.fx, c.fy, c.cx, c.cy, jnp.asarray(500.0))
+    assert tr.last_iters.dtype == torch.int32
+    assert tr.last_iters.tolist() == list(np.asarray(jiters))
+    pts, colors, mask = tr.last_colored_pcd
+    ref = preprocess_frame(torch.as_tensor(f1.rgb), torch.as_tensor(f1.depth), c.fx, c.fy,
+                           c.cx, c.cy, 0.5, 5.0, 4096, **pre_kw)
+    assert torch.equal(pts, ref.points) and torch.equal(mask, ref.mask)
+    assert torch.equal(colors, ref.colors) and int(mask.sum()) > 100
+    assert torch.equal(pts, tr.last_processed_pc[0])
