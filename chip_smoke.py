@@ -7,7 +7,7 @@
    ``nvcc`` per source, in parallel), prints the build time and each
    kernel's registers and spills as ptxas reports them, and counts the
    tensor-core instructions in the compiled code of the two decoder
-   variants and the encoder (fails if one has none).
+   variants, the encoder and the decoder's VJP (fails if one has none).
 2. Holds every kernel against its plain PyTorch version on the card at
    the shapes of the paths below and times both, and the one PyTorch call
    that computes the same function where there is one: device time from
@@ -26,12 +26,12 @@
    new pose within 1e-5 of its largest entry, the decisions equal.
    ``decoder_vjp`` at the refinement's 327680 rows: dx within 1e-3 of each
    row's largest entry on 99.9 % of the rows, its library call the same VJP
-   by autograd over ``decoder_forward_plain``.  A bound
-   is taken at the peak of the unit the kernel computes on
-   (``bound_peak``): the decoders' and the encoder's at three TF32
-   tensor-core passes, with the f32 CUDA-core bound beside it
-   (``bound_f32_ms``); ``decoder_vjp``'s too (f32-exact products take three
-   TF32 passes on the card), though it computes on the CUDA cores.  The fused frontend stencil is held to the plain
+   by autograd over ``decoder_forward_plain``; its line gives ptxas's
+   registers and spills (a spill fails the run) and its share of the bound.
+   A bound is taken at the peak of the unit the kernel computes on
+   (``bound_peak``): the decoders', the VJP's and the encoder's at three
+   TF32 tensor-core passes, with the f32 CUDA-core bound beside it
+   (``bound_f32_ms``).  The fused frontend stencil is held to the plain
    composition: points bitwise, the final mask pixel for pixel, normals
    by direction on the mask and zero off it, two calls bitwise.  The three
    stencil rows are timed a second time after the photometric phase, with
@@ -80,7 +80,14 @@
        with the dense path's gates: ``refine`` (``do_optimize``: per
        refinement its eligible and sampled voxels, device ms and the mean
        NLL of the first and last Adam step; ``decoder_vjp`` launches =
-       refinements x ``optim_n_iters``; fails if no voxel is refined),
+       refinements x ``optim_n_iters``; fails if no voxel is refined; then
+       one refinement on its final map through the ``decoder_vjp`` kernel,
+       through ``decoder_vjp_plain`` in f32, in one-pass TF32 and in
+       float64, under deterministic algorithms: the kernel's latents within
+       ``TOL_REFINE_LAT`` of the float64 run's on at most ``TOL_REFINE_SHARE``
+       fewer of the eligible entries than the f32 plain run's, its NLL a step
+       within ``TOL_REFINE_NLL``; the TF32 run, the control, must fail that
+       gate),
        ``mesh_fast`` (triangles within 20 % of (a)'s, mesh ms beside (a)'s,
        the cadence mesh's slowest call apart, and the final map re-meshed
        whole with either decode, three times alternated),
@@ -222,10 +229,10 @@ PEAK_BYTES = 3.35e12
 # of lin3's re-fed input are weight rows, no product).
 DECODER_TC_MACS = 32 * 128 + 128 * 128 + 128 * 96 + 128 * 128
 DECODER_GRAD_TC_MACS = DECODER_TC_MACS + 3 * (128 * 128 + 128 * 96 + 96 * 128)
-# The decoder's VJP per row on the f32 CUDA cores: the forward recompute
-# (the four hidden layers and the two heads) and the reverse pass (the
-# heads' gradient into lin3's output, then lin3, lin2, lin1 and lin0
-# transposed).
+# The decoder's VJP per row: the forward recompute (the four hidden layers
+# on the tensor cores, the two heads in f32) and the reverse pass (the
+# heads' gradient into lin3's output in f32, then lin3, lin2, lin1 and lin0
+# transposed on the tensor cores).
 DECODER_VJP_MACS = (DECODER_TC_MACS + 2 * 128) + (2 * 128 + 128 * 128 + 96 * 128
                                                   + 128 * 128 + 128 * 32)
 # The encoder's four layers, all on the tensor cores, MACs per row (the
@@ -241,6 +248,15 @@ TOL_MLP = 1e-4          # decoder / encoder outputs: f32, summation order only
 TOL_HG = 1e-4           # photometric H, g, energy: of each output's largest |entry|
 TOL_GRAD = 1e-3         # decoder input gradient
 TOL_VJP = 1e-3          # decoder VJP: of each row's largest |entry|, on 99.9 % of the rows
+# One refinement through the VJP kernel against the same one through the
+# plain VJP in float64: the share of eligible latent entries within 1e-4 at
+# most 0.1 % below the f32 plain VJP's share (Adam steps by about lr g / |g|,
+# so an entry whose gradient is near 0 moves by up to lr a step on a rounding
+# difference, in any f32 VJP), the mean NLL at each Adam step within 1e-5
+# relative.  A one-pass TF32 VJP must fail it.
+TOL_REFINE_LAT = 1e-4
+TOL_REFINE_SHARE = 1e-3
+TOL_REFINE_NLL = 1e-5
 TOL_NORMAL_DOT = 0.999  # |n . n_plain| on 99 % of the valid pixels
 TOL_GN = 1e-5           # gn_step's new pose: of its largest |entry| (f32 LU, another library)
 TOL_ENC = 1e-4          # image encoders, card vs CPU: of the output's largest |entry| (f32)
@@ -629,7 +645,7 @@ def decoder_vjp_row(dev, dec) -> dict:
     x = torch.cat([0.3 * torch.randn(n, 29, device=dev, generator=gen),
                    torch.rand(n, 3, device=dev, generator=gen) - 0.5], 1)
     g = torch.randn(n, 2, device=dev, generator=gen)
-    dx = mlp.decoder_vjp(x, g, dec.packed_vjp, dec.mats)
+    dx = mlp.decoder_vjp(x, g, dec.packed, dec.mats)
     ref = mlp.decoder_vjp_plain(x, g, dec.mats)
     torch.cuda.synchronize()
     rel = (dx - ref).abs().amax(1) / ref.abs().amax(1).clamp_min(1e-30)
@@ -638,6 +654,7 @@ def decoder_vjp_row(dev, dec) -> dict:
         xr = x.detach().requires_grad_()
         return torch.autograd.grad(mlp.decoder_forward_plain(xr, dec.mats), xr, g)
 
+    nbytes = n * (32 + 2 + 32) * 4 + mlp.DECODER_PACKED * 4
     return dict(
         name="decoder_vjp", err=float((dx - ref).abs().max()), tol=None,
         row_rel_err=float(rel.max()), row_tol=TOL_VJP,
@@ -646,18 +663,34 @@ def decoder_vjp_row(dev, dec) -> dict:
         replaces="none (no Pallas source): XLA's reverse-mode autodiff through apply_decoder "
                  "in nerf_fusion_tpu/system/refine.py:79-101",
         shape=f"({n}, 32) + ({n}, 2) -> ({n}, 32)",
-        ms=device_ms(lambda: mlp.decoder_vjp(x, g, dec.packed_vjp, dec.mats)),
-        call_ms=call_ms(lambda: mlp.decoder_vjp(x, g, dec.packed_vjp, dec.mats)),
+        ms=device_ms(lambda: mlp.decoder_vjp(x, g, dec.packed, dec.mats)),
+        call_ms=call_ms(lambda: mlp.decoder_vjp(x, g, dec.packed, dec.mats)),
         plain_ms=device_ms(lambda: mlp.decoder_vjp_plain(x, g, dec.mats)),
         library_ms=device_ms(library),
-        # the card's least time for f32-exact products is three TF32
-        # tensor-core passes, as for the decoder rows; the kernel runs them
-        # on the f32 CUDA cores (bound_f32)
-        bound=bound_ms(3 * 2 * DECODER_VJP_MACS * n,
-                       n * (32 + 2 + 32) * 4 + mlp.DECODER_VJP_PACKED * 4, PEAK_TF32_FLOPS),
+        # f32-exact products as three TF32 tensor-core passes, the unit the
+        # kernel runs them on, as for the decoder rows
+        bound=bound_ms(3 * 2 * DECODER_VJP_MACS * n, nbytes, PEAK_TF32_FLOPS),
         bound_peak="tf32 tensor cores, 3 passes",
-        bound_f32=bound_ms(2 * DECODER_VJP_MACS * n,
-                           n * (32 + 2 + 32) * 4 + mlp.DECODER_VJP_PACKED * 4))
+        bound_f32=bound_ms(2 * DECODER_VJP_MACS * n, nbytes))
+
+
+def ptxas_usage(report: dict, source: str, kernel: str) -> dict:
+    """Registers and spill stores and loads (bytes) of ``kernel`` (a substring of its mangled
+    name) from ``nvcc -Xptxas=-v``'s report on ``source``; empty where the
+    library was already built (no report)."""
+    fn, out = "", {}
+    for line in report.get(source, {}).get("ptxas", "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+        elif kernel in fn:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                out["spill_stores"], out["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out["registers"] = int(m.group(1))
+    return out
 
 
 def kernel_phase(dev):
@@ -890,6 +923,35 @@ KERNEL_ROWS = ("decoder_forward", "decoder_forward_grad", "encoder_forward",
                "decoder_vjp")
 
 
+def card() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def vjp_summary(rows: list, report: dict):
+    """The decoder VJP's row on one line: ptxas registers and spills, device,
+    call, plain and library ms, and its share of the 3xTF32 bound.  Fails if
+    ptxas reports a spill."""
+    v = next(r for r in rows if r["name"] == "decoder_vjp")
+    v.update(ptxas_usage(report, "mlp", "decoder_vjp_kernel"))
+    print(f"decoder_vjp: ptxas {v.get('registers', 'not reported (cached build)')} "
+          f"registers, spill stores {v.get('spill_stores', 'not reported')} and loads "
+          f"{v.get('spill_loads', 'not reported')} bytes; "
+          f"{v['ms']:.4f} ms on the device ({v['call_ms']:.4f} ms a call), plain "
+          f"{v['plain_ms']:.4f} ms, library {v['library_ms']:.4f} ms; bound "
+          f"{v['bound'][0]:.4f} ms on the 3xTF32 tensor cores, share "
+          f"{v['bound'][0] / v['ms']:.3f} (f32 CUDA-core bound {v['bound_f32'][0]:.4f} ms); "
+          f"rows within {TOL_VJP}: {v['row_within_tol']:.5f} ({card()})", flush=True)
+    if v.get("spill_stores", 0) or v.get("spill_loads", 0):
+        fail(f"decoder_vjp: ptxas spills {v['spill_stores']} bytes (stores) and "
+             f"{v['spill_loads']} (loads); the kernel is budgeted to spill none")
+
+
 def ptxas_report(report: dict):
     """Registers, spills and errors from ``nvcc -Xptxas=-v``, per kernel."""
     for name, r in report.items():
@@ -904,14 +966,15 @@ def ptxas_report(report: dict):
 
 def tensor_core_counts() -> dict:
     """Tensor-core instructions in each MLP kernel (the two decoder
-    instantiations and the encoder): HMMA/HGMMA in the SASS of the built
+    instantiations, the encoder and the decoder's VJP): HMMA/HGMMA in the SASS of the built
     library (``cuobjdump -sass``) or, where the toolkit has no cuobjdump,
     mma/wgmma in the PTX of the same source."""
     from nerf_fusion_tpu_torch.ops import cuda_build
 
     kernels = {"decoder_forward": "decoder_kernelILb0E",
                "decoder_forward_grad": "decoder_kernelILb1E",
-               "encoder_forward": "encoder_kernel"}
+               "encoder_forward": "encoder_kernel",
+               "decoder_vjp": "decoder_vjp_kernel"}
     cuobjdump = Path(cuda_build.nvcc_path()).with_name("cuobjdump")
     if cuobjdump.exists():
         cmd = [str(cuobjdump), "-sass", str(cuda_build.library_path("mlp"))]
@@ -1143,6 +1206,107 @@ def fusion_path(dev, label: str, exec_: str = None, config: str = CONFIG,
     return launches_, res
 
 
+def refine_vs_plain(pipe, res):
+    """``after`` hook of the refine path: one refinement (the map's Adam
+    steps) on the final map with every allocated voxel eligible (no count
+    threshold, none optimized yet), at the last frame's points in the world
+    frame (the path's shape: its point budget x 8 corner rows), run four
+    times under deterministic algorithms, so that only the VJP differs:
+    through the ``decoder_vjp`` kernel, through ``decoder_vjp_plain`` in f32,
+    in one-pass TF32 (the control: a VJP of lower precision) and in float64
+    (the forward kernel each time).  Also the first Adam step's latent
+    gradient through each VJP on the same targets, each sampled voxel's row
+    against the float64 one's.  The latents, the NLL a step, the gradient
+    rows and each run's ms (CUDA events) into ``res["refine_vs_plain"]``."""
+    import torch
+
+    from nerf_fusion_tpu_torch.ops import mlp
+    from nerf_fusion_tpu_torch.system import refine
+
+    vmap, dec = pipe.map, pipe.map.model.decoder
+    mats64 = [(w.double(), b.double()) for w, b in dec.mats]
+
+    def plain_decoder(kind: str):
+        class PlainVjp(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x):
+                ctx.save_for_backward(x)
+                return mlp.decoder_forward(x, dec.packed, dec.mats)
+
+            @staticmethod
+            def backward(ctx, g):
+                (x,) = ctx.saved_tensors
+                if kind == "f64":
+                    return mlp.decoder_vjp_plain(x.double(), g.double(), mats64).float()
+                torch.backends.cuda.matmul.allow_tf32 = kind == "tf32"
+                try:
+                    return mlp.decoder_vjp_plain(x, g.contiguous(), dec.mats)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+
+        class PlainVjpDecoder:
+            @staticmethod
+            def differentiable(x):
+                return PlainVjp.apply(x.contiguous())
+
+        return PlainVjpDecoder
+
+    pts, nrm, mask = pipe.tracker.last_processed_pc
+    R, t = pipe.tracker.all_pd_pose[-1]
+    pts, nrm = pts @ R.T + t[None, :], nrm @ R.T
+    state = vmap.state._replace(optimized=torch.zeros_like(vmap.state.optimized))
+    cfg = vmap.cfg._replace(encoder_count_th=0.0)
+    gt = refine.draw_jitter(pts.shape[0], torch.Generator(device=pts.device).manual_seed(5),
+                            pts.device)
+    runs = (("kernel", dec), ("plain", plain_decoder("f32")), ("tf32", plain_decoder("tf32")),
+            ("f64", plain_decoder("f64")))
+    out, ms, grad = {}, {}, {}
+    with deterministic():
+        for name, d in runs:
+            log = {}
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            r = refine.refine_latents_core(state, cfg, d, pts, nrm, mask, gt,
+                                           n_iters=vmap.optim_n_iters,
+                                           code_reg_lambda=vmap.code_reg_lambda, log=log)
+            end.record()
+            end.synchronize()
+            ms[name] = start.elapsed_time(end)
+            out[name] = (r.latents, r.refined, log["nll"], int(log["sampled"]))
+        tg = refine.refine_targets(state, cfg, pts, nrm, mask, gt)
+        for name, d in runs:
+            lat = state.latents.clone().requires_grad_()
+            with torch.enable_grad():
+                loss, _ = refine.refine_loss(lat, d, tg, vmap.code_reg_lambda)
+                (grad[name],) = torch.autograd.grad(loss, lat)
+    el, sampled = out["kernel"][1], out["kernel"][3]
+    if not sampled:
+        fail("refine: no eligible voxel has a sample in the refinement held against the "
+             "plain VJP")
+    hit = torch.zeros(cfg.latent_capacity + 1, dtype=torch.bool, device=pts.device)
+    hit[torch.where(tg.weight > 0, tg.slot, cfg.latent_capacity)] = True
+    rows = hit[:-1] & tg.eligible
+    ref_lat, ref_nll, ref_grad = out["f64"][0], out["f64"][2], grad["f64"][rows].double()
+
+    def held(name):
+        lat, _, nll, _ = out[name]
+        diff = (lat - ref_lat)[el].abs()
+        rel = ((grad[name][rows].double() - ref_grad).abs().amax(1)
+               / ref_grad.abs().amax(1).clamp_min(1e-30))
+        return dict(lat_within=float((diff <= TOL_REFINE_LAT).float().mean()),
+                    lat_max=float(diff.max()),
+                    nll_rel=float((nll - ref_nll).abs().max() / ref_nll.abs().max()),
+                    grad_rel_median=float(rel.median()), grad_rel_max=float(rel.max()),
+                    grad_within={f"{tol:g}": float((rel <= tol).double().mean())
+                                 for tol in (1e-6, 1e-5, 1e-4, 1e-3)})
+
+    res["refine_vs_plain"] = dict(
+        eligible=int(el.sum()), sampled=sampled, grad_rows=int(rows.sum()),
+        rows=8 * pts.shape[0], steps=vmap.optim_n_iters, ms=ms,
+        **{name: held(name) for name in ("kernel", "plain", "tf32")})
+
+
 def remesh_ms(pipe, res, reps: int = 3):
     """The run's final map re-meshed whole (``no_cache``) with the full and
     the fast decode, alternated ``reps`` times: ms a call (host clock,
@@ -1226,8 +1390,36 @@ def option_paths(dev, paths: dict, dense: dict):
             fail(f"{label}: no voxel was refined over the run")
         return ref
 
-    paths["refine"], res = fusion_path(dev, "refine", OPTION_EXECS["refine"])
+    paths["refine"], res = fusion_path(dev, "refine", OPTION_EXECS["refine"],
+                                       after=refine_vs_plain)
     refinements("refine", res)
+    rp = res["refine_vs_plain"]
+    pl = rp["plain"]
+    print(f"refine path: one refinement on the final map ({rp['eligible']} eligible voxels, "
+          f"{rp['sampled']} with samples, {rp['rows']} rows, {rp['steps']} Adam steps, "
+          f"deterministic algorithms) against the same one through decoder_vjp_plain in "
+          f"float64, {rp['ms']['kernel']:.3f} ms through the kernel, {rp['ms']['plain']:.3f} "
+          f"ms through the f32 plain VJP (CUDA events):", flush=True)
+    for name, what in (("kernel", "the kernel"), ("plain", "the f32 plain VJP"),
+                       ("tf32", "the one-pass TF32 plain VJP (control)")):
+        h = rp[name]
+        print(f"  through {what}: latents within {TOL_REFINE_LAT} on {h['lat_within']:.6f} of "
+              f"the eligible entries (at most {h['lat_max']:.3e} apart), mean NLL a step "
+              f"within {h['nll_rel']:.3e} relative; the first step's latent gradient "
+              f"{h['grad_rel_median']:.3e} from float64's (median of {rp['grad_rows']} "
+              f"sampled rows, of each row's largest entry), within 1e-4 on "
+              f"{h['grad_within']['0.0001']:.6f}", flush=True)
+
+    def held(h):
+        return (h["lat_within"] >= pl["lat_within"] - TOL_REFINE_SHARE
+                and h["nll_rel"] <= TOL_REFINE_NLL)
+
+    if not held(rp["kernel"]):
+        fail(f"refine: the refinement through the kernel is further from the float64 VJP's "
+             f"than the f32 plain VJP's: {rp}")
+    if held(rp["tf32"]):
+        fail(f"refine: the gate passes the one-pass TF32 VJP, so it cannot judge the "
+             f"kernel's precision: {rp}")
 
     paths["mesh_fast"], res = fusion_path(dev, "mesh_fast", OPTION_EXECS["mesh_fast"],
                                           after=remesh_ms)
@@ -2117,6 +2309,7 @@ def main() -> int:
     ptxas_report(report)
     tensor_cores = tensor_core_counts()
     rows = kernel_phase(dev)
+    vjp_summary(rows, report)
     render_check(dev)
     paths = {}
     paths["dense"], dense_res = fusion_path(dev, "dense")
@@ -2178,17 +2371,13 @@ def main() -> int:
                                  "row_tol", "row_within_tol", "count_err",
                                  "normal_agree_frac", "mask_diff", "pts_equal",
                                  "off_mask_zero", "repeat_equal", "ms_again",
-                                 "selection_matches_cpu", "recorded_steps", "cases")
+                                 "selection_matches_cpu", "recorded_steps", "cases",
+                                 "registers", "spill_stores", "spill_loads")
                if k in r}})
     if sorted(k["name"] for k in kernels) != sorted(KERNEL_ROWS):
         fail(f"kernel rows {[k['name'] for k in kernels]} are not {KERNEL_ROWS}")
     print(json.dumps({"kernels": kernels}), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,7 +4,9 @@
 //   decoder_forward, decoder_forward_grad <- _decoder_pallas_call (:98),
 //       kernel _decoder_kernel (:82), entry decoder_forward_pallas (:113);
 //   encoder_forward                       <- _encoder_pallas_call (:165),
-//       kernel _encoder_kernel (:155), entry encoder_forward_pallas (:180).
+//       kernel _encoder_kernel (:155), entry encoder_forward_pallas (:180);
+// and, with no Pallas source, XLA's reverse mode through the decoder in the
+// latent refinement: decoder_vjp (the last section).
 //
 // Both MLPs hold tens of thousands of MACs per row for a few hundred bytes
 // in and out, far above any ridge point: arithmetic bounds them.  Their
@@ -61,6 +63,10 @@
 // blocks of 8 warps leave (they spilled), so a block has 6 warps: two
 // blocks (109,056 bytes of weights each) and 12 warps fit an SM.
 //
+// Decoder VJP: the forward pass recomputed on the same tiles and weights,
+// then the reverse pass as transposed products read from the same shared
+// copy (its section says how).
+//
 // Edges: a partial last tile reads rows >= n as zeros and stores none of
 // them.
 
@@ -103,10 +109,26 @@ __device__ __forceinline__ void split_staged(float w, uint32_t& hi, uint32_t& lo
   lo = __float_as_uint(w - __uint_as_float(hi));
 }
 
+// The decoder VJP reads each staged hidden matrix two ways: as the B
+// fragments of the forward product (lane l: one float2 at floats 2l, 2l + 1
+// of each 64-float fragment block) and of the transposed product (lane
+// 4g + t: floats 16t + g and 16t + 8 + g, see accumulate_t).  Stored as
+// packed, the transposed reads of lanes t and t + 2 fall on one bank.  Its
+// staging therefore swaps the two 8-float quarters of the second half of
+// each block (float f of a block goes to f ^ ((f >> 2) & 8)): each
+// transposed read then hits 32 banks, each half-warp of a forward read still
+// 32 banks, and a float4 of the buffer stays a float4.
+__device__ __forceinline__ int swizzle(int f) { return f ^ ((f >> 2) & 8); }
+
+// The float2 slot of a block that lane `lane` reads in the forward product
+// of a swizzled matrix (slot s goes to s ^ ((s >> 2) & 4)).
+__device__ __forceinline__ int swizzled_slot(int lane) { return lane ^ ((lane >> 2) & 4); }
+
 // Copies a packed weight buffer of L::kSize floats into shared memory,
 // staging the matrices' entries (L::is_matrix), 16 bytes a load where the
-// buffer allows it.  Each matrix range starts and ends on a multiple of 4.
-template <typename L, int THREADS>
+// buffer allows it, and with SWIZZLED each matrix entry at L::swizzled(i).
+// Each matrix range starts and ends on a multiple of 4.
+template <typename L, int THREADS, bool SWIZZLED = false>
 __device__ __forceinline__ void stage_weights(const float* __restrict__ wts, float* sw) {
   int staged = 0;
   if ((reinterpret_cast<uintptr_t>(wts) & 15) == 0) {
@@ -121,13 +143,17 @@ __device__ __forceinline__ void stage_weights(const float* __restrict__ wts, flo
         v.z = stage_weight(v.z);
         v.w = stage_weight(v.w);
       }
-      dst[i] = v;
+      int d = i;
+      if constexpr (SWIZZLED) d = L::swizzled(4 * i) / 4;
+      dst[d] = v;
     }
     staged = L::kSize / 4 * 4;
   }
   for (int i = staged + threadIdx.x; i < L::kSize; i += THREADS) {
     const float v = __ldg(wts + i);
-    sw[i] = L::is_matrix(i) ? stage_weight(v) : v;
+    int d = i;
+    if constexpr (SWIZZLED) d = L::swizzled(i);
+    sw[d] = L::is_matrix(i) ? stage_weight(v) : v;
   }
 }
 
@@ -146,12 +172,24 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
 // (g = lane / 4, t = lane % 4).
 //
 // acc += a W for one layer (or one K chunk of it), W (8 KB x 8 NB) in
-// B-fragment order in shared memory.
-template <int KB, int NB>
+// B-fragment order in shared memory (SWIZZLED: as the VJP stages it).
+//
+// mma.sync adds its eight products and its accumulator as one block,
+// aligned to the largest and the low bits truncated, so each product into a
+// running sum loses bits against the sum.  With BLOCK_SUMS each K block's
+// three products go into a fresh accumulator, added to acc in f32 (rounded
+// to nearest).  The VJP takes its ReLU masks from these sums: at 327680
+// rows on an H100 that halved the rows whose mask flipped against float64
+// (18 to 9; cuBLAS's f32 products: 5), for 0.25 ms more a call (PERF.md).
+template <int KB, int NB, bool SWIZZLED = false, bool BLOCK_SUMS = false>
 __device__ __forceinline__ void accumulate(const float (&a)[KB][4], const float* w,
                                            int lane, float (&acc)[NB][4]) {
-  static_assert(NB % 4 == 0, "N blocks go in fours");
-  const float2* wf = reinterpret_cast<const float2*>(w) + lane;
+  // N blocks a group: with BLOCK_SUMS two, so that the group's sums take
+  // the registers that two more B fragments would
+  constexpr int G = BLOCK_SUMS ? 2 : 4;
+  static_assert(NB % G == 0, "N blocks go in groups");
+  const float2* wf =
+      reinterpret_cast<const float2*>(w) + (SWIZZLED ? swizzled_slot(lane) : lane);
 #pragma unroll
   for (int kb = 0; kb < KB; ++kb) {
     // A fragment: a0 (g, k position t), a1 (g + 8, t), a2 (g, t + 4),
@@ -161,30 +199,45 @@ __device__ __forceinline__ void accumulate(const float (&a)[KB][4], const float*
     split(a[kb][2], ah[1], al[1]);
     split(a[kb][1], ah[2], al[2]);
     split(a[kb][3], ah[3], al[3]);
-    // Four N blocks at a time, pass by pass, so that neighbouring products
+    // G N blocks at a time, pass by pass, so that neighbouring products
     // go to different accumulators.
 #pragma unroll
-    for (int n0 = 0; n0 < NB; n0 += 4) {
-      uint32_t bh[4][2], bl[4][2];
+    for (int n0 = 0; n0 < NB; n0 += G) {
+      uint32_t bh[G][2], bl[G][2];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
+      for (int q = 0; q < G; ++q) {
         const float2 wv = wf[(kb * NB + n0 + q) * 32];
         split_staged(wv.x, bh[q][0], bl[q][0]);
         split_staged(wv.y, bh[q][1], bl[q][1]);
       }
+      if constexpr (BLOCK_SUMS) {
+        float s[G][4] = {};
 #pragma unroll
-      for (int q = 0; q < 4; ++q) mma(acc[n0 + q], al, bh[q][0], bh[q][1]);
+        for (int q = 0; q < G; ++q) mma(s[q], al, bh[q][0], bh[q][1]);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) mma(acc[n0 + q], ah, bl[q][0], bl[q][1]);
+        for (int q = 0; q < G; ++q) mma(s[q], ah, bl[q][0], bl[q][1]);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) mma(acc[n0 + q], ah, bh[q][0], bh[q][1]);
+        for (int q = 0; q < G; ++q) mma(s[q], ah, bh[q][0], bh[q][1]);
+#pragma unroll
+        for (int q = 0; q < G; ++q) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[n0 + q][i] += s[q][i];
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < G; ++q) mma(acc[n0 + q], al, bh[q][0], bh[q][1]);
+#pragma unroll
+        for (int q = 0; q < G; ++q) mma(acc[n0 + q], ah, bl[q][0], bl[q][1]);
+#pragma unroll
+        for (int q = 0; q < G; ++q) mma(acc[n0 + q], ah, bh[q][0], bh[q][1]);
+      }
     }
   }
 }
 
 // acc = bias + a W for one layer.  Rows of a tangent plane (GRAD, plane != 0)
 // take no bias.
-template <int KB, int NB, bool GRAD>
+template <int KB, int NB, bool GRAD, bool SWIZZLED = false, bool BLOCK_SUMS = false>
 __device__ __forceinline__ void hidden(const float (&a)[KB][4], const float* w,
                                        const float* b, int lane,
                                        float (&acc)[NB][4]) {
@@ -199,7 +252,7 @@ __device__ __forceinline__ void hidden(const float (&a)[KB][4], const float* w,
     acc[nb][2] = bb.x;
     acc[nb][3] = bb.y;
   }
-  accumulate<KB, NB>(a, w, lane, acc);
+  accumulate<KB, NB, SWIZZLED, BLOCK_SUMS>(a, w, lane, acc);
 }
 
 // h = relu(acc) over the first NB blocks of h.  In the gradient variant a
@@ -266,6 +319,13 @@ struct DecoderLayout {
   __device__ static bool is_matrix(int i) {
     return i < kB0 || (i >= kW1 && i < kB1) || (i >= kW2 && i < kB2) ||
            (i >= kW3 && i < kB3);
+  }
+  // Where the VJP stages entry i: a matrix entry swizzled within its
+  // matrix's 64-float blocks (kW3 is not a multiple of 64), the rest as is.
+  __device__ static int swizzled(int i) {
+    if (!is_matrix(i)) return i;
+    const int base = i < kB0 ? kW0 : i < kB1 ? kW1 : i < kB2 ? kW2 : kW3;
+    return base + swizzle(i - base);
   }
 };
 using DL = DecoderLayout;
@@ -522,221 +582,306 @@ int launch_encoder(const float* x, const float* wts, int n, float* out, void* st
 }
 
 // ---------------------------------------------------------------------------
-// Decoder VJP: dx = g^T d[sdf, std] / dx, f32 on the CUDA cores.
+// Decoder VJP: dx = g^T d[sdf, std] / dx, 3xTF32 on the tensor cores.
 // ---------------------------------------------------------------------------
 //
 // No Pallas source: the counterpart of XLA's reverse-mode autodiff through
 // apply_decoder inside refine_latents (nerf_fusion_tpu/system/refine.py:79-101).
-// A block takes a tile of 64 rows: it recomputes the forward pass into two
-// ping-pong activation buffers in shared memory, keeping each hidden layer's
-// ReLU mask as bits, turns the heads into the gradient of the last hidden
-// activation (d sdf brings (1 - sdf^2) w4, d std brings 0.5 sigmoid(unc) wu),
-// and runs the reverse pass through lin3 (split into the h branch and the
-// re-fed input), lin2, lin1 and lin0 with the transposed matrices.  Each
-// product is a register-tiled loop: a thread holds RT rows x 4 columns, reads
-// one float4 of the (K, N) row-major matrix per k from global memory (L2
-// holds the 396 KB of weights; no copy in shared memory: the forward
-// kernel's packed weights already fill it) and the rows' activations from
-// shared memory (one address per warp).  Operations bound it: about 2 x
-// 98.8 kFLOP a row on the f32 CUDA cores.
+// It replaces an f32 CUDA-core kernel (64-row blocks, activations through
+// shared memory, weights from L2: 2.11 ms at 327680 rows on an H100).
+// About 2 x 98.8 kFLOP a row (the forward recompute and the reverse pass)
+// for 264 bytes in and out: operations bound it, at the tensor cores' rate
+// for f32-exact products (three TF32 passes), as they bound the forward
+// decoder; registers bound the design.
+//
+// The forward decoder's design, run forward and back: a persistent grid of
+// one 8-warp block per SM that stages the forward kernel's packed weights
+// once (swizzled, see swizzle()), each warp looping over 16-row tiles held
+// in registers in the m16n8 accumulator layout.  The forward pass keeps no
+// activation, only each hidden layer's ReLU mask, as bits (relu_bits: 2
+// words a 128-wide layer, parked in shared memory until they gate), and sums
+// each K block apart (BLOCK_SUMS in accumulate) so that fewer masks flip.  The heads give each
+// row's two coefficients in f32, c4 = g0 (1 - sdf^2) and cu = g1 0.5
+// sigmoid(unc), and with them lin3's output gradient d3 = mask3 (c4 w4 +
+// cu wu), built in the accumulator layout, which is the next product's A
+// fragment.  Four transposed products follow (accumulate_t: each B fragment
+// read from the forward matrix's copy by the transposed index map, two
+// 4-byte loads), each gated by the mask of the layer below: lin3^T (its
+// columns 96..127 are the re-fed input's gradient, parked in shared memory
+// until lin0^T), lin2^T, lin1^T, and lin0^T, whose accumulator starts at the
+// re-fed gradient.  dx is stored as float2s.
+//
+// Registers: the kernel takes all 255 a thread may have and spills none.
+// Four things here keep it there: x is read again for lin3, only after
+// h's K blocks are spent, rather than held through lin1 and lin2; the re-fed
+// gradient and the masks of lin0-lin2 are parked; and neither the per-tile
+// constants (opaque_zero) nor the masks (relu_bits) can be traced back by
+// the compiler to values it would then hold instead.  With the masks in
+// registers and x held beside all of h in lin3, the K-block sums made ptxas
+// spill 7 words a thread.
 
-constexpr int kVjpRows = 64;
-constexpr int kVjpThreads = 256;
-constexpr int kVjpLd = 132;   // activation row stride in shared memory (floats)
-constexpr int kVjpLdX = 36;   // input row stride
-
-// Packed weights (ops/mlp.py pack_decoder_vjp): lin0..lin3 as row-major (in,
-// out) matrices, then their transposes, then the hidden biases, lin4 and unc.
-struct VjpLayout {
-  static constexpr int kW0 = 0;
-  static constexpr int kW1 = kW0 + kIn * kH;
-  static constexpr int kW2 = kW1 + kH * kH;
-  static constexpr int kW3 = kW2 + kH * kH2;
-  static constexpr int kT0 = kW3 + kH * kH;    // (128, 32)
-  static constexpr int kT1 = kT0 + kH * kIn;   // (128, 128)
-  static constexpr int kT2 = kT1 + kH * kH;    // (96, 128)
-  static constexpr int kT3 = kT2 + kH2 * kH;   // (128, 128)
-  static constexpr int kB0 = kT3 + kH * kH;
-  static constexpr int kB1 = kB0 + kH;
-  static constexpr int kB2 = kB1 + kH;
-  static constexpr int kB3 = kB2 + kH2;
-  static constexpr int kW4 = kB3 + kH;
-  static constexpr int kB4 = kW4 + kH;
-  static constexpr int kWu = kB4 + 1;
-  static constexpr int kBu = kWu + kH;
-  static constexpr int kSize = kBu + 1;
-};
-using VL = VjpLayout;
-static_assert(VL::kSize == 99042, "decoder vjp packing");
-static_assert(VL::kB0 % 4 == 0 && VL::kB1 % 4 == 0 && VL::kB2 % 4 == 0 &&
-                  VL::kB3 % 4 == 0,
-              "16-byte bias loads");
-// A, B activations; X the input (in the reverse pass the re-fed input's
-// gradient); coef the heads' two coefficients a row; 4 x 4 mask words a row.
-constexpr int kVjpSmem =
-    (2 * kVjpRows * kVjpLd + kVjpRows * kVjpLdX + 2 * kVjpRows) * sizeof(float) +
-    4 * kVjpRows * 4 * sizeof(uint32_t);
-
-// For each item of RT rows x 4 columns of out = in W (in: kVjpRows x K in
-// shared memory, row stride ldi; W: (K, N) row-major in global memory):
-// epi(row, column, the four sums).
-template <int K, int N, int RT, typename Epi>
-__device__ __forceinline__ void vjp_gemm(const float* in, int ldi,
-                                         const float* __restrict__ w, Epi epi) {
-  constexpr int CG = N / 4;
-  constexpr int kItems = (kVjpRows / RT) * CG;
-  static_assert(N % 4 == 0 && kVjpRows % RT == 0, "vjp_gemm tiling");
-  for (int item = threadIdx.x; item < kItems; item += kVjpThreads) {
-    const int c = 4 * (item % CG);
-    const int r0 = (item / CG) * RT;
-    float acc[RT][4];
+// acc += a W^T for one layer: W (8 NB x 8 KB) the layer's (in, out) matrix
+// as the VJP stages it.  Element (k, n) of W^T is W[n][k]: the forward
+// fragment order puts it in block (n / 8, k / 8) at float 16 t + 8 j + g of
+// the block (k = 8 kb + 2 t + j, n = 8 nb + g), which the swizzle moves to
+// 16 t + 8 (j ^ (t >> 1)) + g.  Only the first KB blocks of a are read.
+template <int KB, int NB, int NA>
+__device__ __forceinline__ void accumulate_t(const float (&a)[NA][4], const float* w,
+                                             int lane, float (&acc)[NB][4]) {
+  constexpr int G = 2;   // N blocks a group
+  static_assert(KB <= NA && NB % G == 0, "accumulate_t tiling");
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const float* w0 = w + 16 * t + 8 * (t >> 1) + g;        // j = 0
+  const float* w1 = w + 16 * t + 8 * ((t >> 1) ^ 1) + g;  // j = 1
 #pragma unroll
-    for (int i = 0; i < RT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    const float4* wp = reinterpret_cast<const float4*>(w + c);
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float4 wv = __ldg(wp + k * CG);
+  for (int kb = 0; kb < KB; ++kb) {
+    uint32_t ah[4], al[4];
+    split(a[kb][0], ah[0], al[0]);
+    split(a[kb][2], ah[1], al[1]);
+    split(a[kb][1], ah[2], al[2]);
+    split(a[kb][3], ah[3], al[3]);
 #pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        const float a = in[(r0 + i) * ldi + k];
-        acc[i][0] = fmaf(a, wv.x, acc[i][0]);
-        acc[i][1] = fmaf(a, wv.y, acc[i][1]);
-        acc[i][2] = fmaf(a, wv.z, acc[i][2]);
-        acc[i][3] = fmaf(a, wv.w, acc[i][3]);
+    for (int n0 = 0; n0 < NB; n0 += G) {
+      uint32_t bh[G][2], bl[G][2];
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        const int o = ((n0 + q) * KB + kb) * 64;
+        split_staged(w0[o], bh[q][0], bl[q][0]);
+        split_staged(w1[o], bh[q][1], bl[q][1]);
+      }
+#pragma unroll
+      for (int q = 0; q < G; ++q) mma(acc[n0 + q], al, bh[q][0], bh[q][1]);
+#pragma unroll
+      for (int q = 0; q < G; ++q) mma(acc[n0 + q], ah, bl[q][0], bl[q][1]);
+#pragma unroll
+      for (int q = 0; q < G; ++q) mma(acc[n0 + q], ah, bh[q][0], bh[q][1]);
+    }
+  }
+}
+
+// h = relu(acc) over NB blocks, and the mask acc > 0 as bits: register
+// (nb, i) of the accumulator layout is bit 4 (nb % 8) + i of word nb / 8.
+// The words pass through an empty asm: otherwise the compiler sees that a
+// bit read back later is acc > 0 and keeps the NB x 4 floats of acc alive
+// until then instead of the words (it spilled them).
+template <int NB, int NH>
+__device__ __forceinline__ void relu_bits(const float (&acc)[NB][4], float (&h)[NH][4],
+                                          uint32_t (&m)[(NB + 7) / 8]) {
+  static_assert(NB <= NH, "relu output too small");
+#pragma unroll
+  for (int w = 0; w < (NB + 7) / 8; ++w) m[w] = 0u;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool on = acc[nb][i] > 0.f;
+      h[nb][i] = on ? acc[nb][i] : 0.f;
+      m[nb >> 3] |= (on ? 1u : 0u) << (4 * (nb & 7) + i);
+    }
+  }
+#pragma unroll
+  for (int w = 0; w < (NB + 7) / 8; ++w) asm volatile("" : "+r"(m[w]));
+}
+
+// v where register (nb, i)'s mask bit is set, else 0.
+template <int W>
+__device__ __forceinline__ float gate(const uint32_t (&m)[W], int nb, int i, float v) {
+  return (m[nb >> 3] >> (4 * (nb & 7) + i)) & 1u ? v : 0.f;
+}
+
+// 0, from an instruction the compiler cannot look through.
+__device__ __forceinline__ int opaque_zero() {
+  int z;
+  asm volatile("mov.b32 %0, 0;" : "=r"(z));
+  return z;
+}
+
+// Rows r[0], r[1] of x in the A layout (columns 8 kb + 2t, 8 kb + 2t + 1);
+// rows >= n read as zeros.
+template <int KB>
+__device__ __forceinline__ void load_rows(const float* __restrict__ x, const int (&r)[2],
+                                          int n, int t, float (&v)[KB][4]) {
+#pragma unroll
+  for (int kb = 0; kb < KB; ++kb) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r[i >> 1];
+      v[kb][i] = row < n ? __ldg(x + (size_t)row * kIn + 8 * kb + 2 * t + (i & 1)) : 0.f;
+    }
+  }
+}
+
+// The VJP's shared memory: the staged weights, then for each warp 22 words
+// a lane, parked lane-major: the 16 registers of the re-fed input gradient
+// from lin3^T to lin0^T, and the 6 mask words of lin0, lin1 and lin2 from
+// the forward pass to the transposed product that each gates.  None of them
+// then holds a register through the products in between.
+constexpr int kVjpPark = (DL::kSize + 3) / 4 * 4;
+constexpr int kVjpParkWords = 16 + 6;
+constexpr int kVjpSmem = (kVjpPark + kDecoderWarps * kVjpParkWords * 32) * sizeof(float);
+static_assert(kVjpSmem <= 232448, "VJP shared memory");
+
+__global__ void __launch_bounds__(kDecoderThreads, 1)
+    decoder_vjp_kernel(const float* __restrict__ x, const float* __restrict__ up,
+                       const float* __restrict__ wts, int n, float* __restrict__ dx) {
+  extern __shared__ __align__(16) float sw[];
+  stage_weights<DL, kDecoderThreads, true>(wts, sw);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int tiles = (n + 15) / 16;
+  for (int tile = blockIdx.x * kDecoderWarps + (threadIdx.x >> 5); tile < tiles;
+       tile += gridDim.x * kDecoderWarps) {
+    const int r[2] = {tile * 16 + g, tile * 16 + g + 8};
+    // The weights through an offset the compiler cannot see through: the
+    // loads of the biases and the heads' columns, the same in every tile,
+    // then stay in the loop rather than being hoisted out of it into some
+    // 100 registers held across it (they spilled).
+    const float* ws = sw + opaque_zero();
+    float* park = sw + kVjpPark + (threadIdx.x >> 5) * kVjpParkWords * 32 + lane;
+    // the masks' words: m0 at 0-1, m1 at 2-3, m2 at 4-5 (volatile: each is
+    // stored once and read back where it gates, not kept in a register)
+    volatile uint32_t* mp = reinterpret_cast<volatile uint32_t*>(park + 16 * 32);
+
+    // Forward, keeping the masks.
+    uint32_t m0[2], m1[2], m2[2], m3[2];
+    float h[kH / 8][4];
+    float acc[kH / 8][4];
+    {
+      float xf[kIn / 8][4];
+      load_rows(x, r, n, t, xf);
+      hidden<kIn / 8, kH / 8, false, true, true>(xf, ws + DL::kW0, ws + DL::kB0, lane, acc);
+    }
+    relu_bits<kH / 8>(acc, h, m0);
+    mp[0] = m0[0]; mp[32] = m0[1];
+    hidden<kH / 8, kH / 8, false, true, true>(h, ws + DL::kW1, ws + DL::kB1, lane, acc);
+    relu_bits<kH / 8>(acc, h, m1);
+    mp[64] = m1[0]; mp[96] = m1[1];
+    {
+      float acc2[kH2 / 8][4];
+      hidden<kH / 8, kH2 / 8, false, true, true>(h, ws + DL::kW2, ws + DL::kB2, lane, acc2);
+      relu_bits<kH2 / 8>(acc2, h, m2);
+      mp[128] = m2[0]; mp[160] = m2[1];
+    }
+    // lin3 on [h | x]: h's 12 K blocks, then x's 4, read again (from L1)
+    // only once h's blocks are spent, so that the two are never held together
+    hidden<kH2 / 8, kH / 8, false, true, true>(reinterpret_cast<const float(&)[kH2 / 8][4]>(h),
+                                               ws + DL::kW3, ws + DL::kB3, lane, acc);
+    {
+      float xf[kIn / 8][4];
+      load_rows(x, r, n, t, xf);
+      accumulate<kIn / 8, kH / 8, true, true>(xf, ws + DL::kW3 + kH2 * kH, lane, acc);
+    }
+    relu_bits<kH / 8>(acc, h, m3);
+
+    // Heads in f32: each row's lin4 and unc sums, then its coefficients.
+    float d4[2] = {0.f, 0.f}, du[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nb = 0; nb < kH / 8; ++nb) {
+      const int k = 8 * nb + 2 * t;
+      const float w4a = ws[DL::kW4 + k], w4b = ws[DL::kW4 + k + 1];
+      const float wua = ws[DL::kWu + k], wub = ws[DL::kWu + k + 1];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        d4[half] = fmaf(h[nb][2 * half + 1], w4b, fmaf(h[nb][2 * half], w4a, d4[half]));
+        du[half] = fmaf(h[nb][2 * half + 1], wub, fmaf(h[nb][2 * half], wua, du[half]));
       }
     }
+    float c4[2], cu[2];
 #pragma unroll
-    for (int i = 0; i < RT; ++i)
-      epi(r0 + i, c, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-  }
-}
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        d4[half] += __shfl_xor_sync(0xffffffffu, d4[half], o);
+        du[half] += __shfl_xor_sync(0xffffffffu, du[half], o);
+      }
+      const int row = r[half];
+      const float g0 = row < n ? __ldg(up + 2 * (size_t)row) : 0.f;
+      const float g1 = row < n ? __ldg(up + 2 * (size_t)row + 1) : 0.f;
+      const float sdf = tanhf(d4[half] + ws[DL::kB4]);
+      const float sig = 1.f / (1.f + expf(-(du[half] + ws[DL::kBu])));
+      c4[half] = g0 * (1.f - sdf * sdf);
+      cu[half] = g1 * (0.5f * sig);
+    }
 
-__device__ __forceinline__ float4 masked(float4 v, uint32_t bits) {
-  return make_float4(bits & 1u ? v.x : 0.f, bits & 2u ? v.y : 0.f, bits & 4u ? v.z : 0.f,
-                     bits & 8u ? v.w : 0.f);
-}
-
-__global__ void __launch_bounds__(kVjpThreads, 2)
-    decoder_vjp_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                       const float* __restrict__ wts, int n, float* __restrict__ dx) {
-  extern __shared__ __align__(16) float sv[];
-  float* A = sv;
-  float* B = A + kVjpRows * kVjpLd;
-  float* X = B + kVjpRows * kVjpLd;
-  float* coef = X + kVjpRows * kVjpLdX;
-  uint32_t* masks = reinterpret_cast<uint32_t*>(coef + 2 * kVjpRows);  // [layer][row][4]
-  const int row0 = blockIdx.x * kVjpRows;
-  const int tid = threadIdx.x;
-
-  for (int i = tid; i < kVjpRows * kIn; i += kVjpThreads) {
-    const int r = i / kIn, c = i % kIn;
-    X[r * kVjpLdX + c] = row0 + r < n ? __ldg(x + (size_t)(row0 + r) * kIn + c) : 0.f;
-  }
-  for (int i = tid; i < 4 * kVjpRows * 4; i += kVjpThreads) masks[i] = 0u;
-  __syncthreads();
-
-  // out = relu(v + bias), its mask bits into layer `layer`'s words.
-  auto relu_into = [&](float* out, int bias, int layer) {
-    uint32_t* m = masks + layer * kVjpRows * 4;
-    return [=](int r, int c, float4 v) {
-      const float4 b = __ldg(reinterpret_cast<const float4*>(wts + bias + c));
-      v.x += b.x;
-      v.y += b.y;
-      v.z += b.z;
-      v.w += b.w;
-      const uint32_t bits = (v.x > 0.f ? 1u : 0u) | (v.y > 0.f ? 2u : 0u) |
-                            (v.z > 0.f ? 4u : 0u) | (v.w > 0.f ? 8u : 0u);
-      *reinterpret_cast<float4*>(out + r * kVjpLd + c) = masked(v, bits);
-      if (bits) atomicOr(m + r * 4 + (c >> 5), bits << (c & 31));
-    };
-  };
-  auto mask_bits = [&](int layer, int r, int c) {
-    return (masks[(layer * kVjpRows + r) * 4 + (c >> 5)] >> (c & 31)) & 15u;
-  };
-
-  // Forward pass.
-  vjp_gemm<kIn, kH, 8>(X, kVjpLdX, wts + VL::kW0, relu_into(A, VL::kB0, 0));
-  __syncthreads();
-  vjp_gemm<kH, kH, 8>(A, kVjpLd, wts + VL::kW1, relu_into(B, VL::kB1, 1));
-  __syncthreads();
-  vjp_gemm<kH, kH2, 8>(B, kVjpLd, wts + VL::kW2, relu_into(A, VL::kB2, 2));
-  for (int i = tid; i < kVjpRows * kIn; i += kVjpThreads) {  // latent_in at lin3
-    const int r = i / kIn, c = i % kIn;
-    A[r * kVjpLd + kH2 + c] = X[r * kVjpLdX + c];
-  }
-  __syncthreads();
-  vjp_gemm<kH, kH, 8>(A, kVjpLd, wts + VL::kW3, relu_into(B, VL::kB3, 3));
-  __syncthreads();
-
-  // Heads: four threads a row, 32 products each.
-  {
-    const int r = tid >> 2, q = tid & 3;
-    float s4 = 0.f, su = 0.f;
-#pragma unroll 8
-    for (int k = 32 * q; k < 32 * q + 32; ++k) {
-      const float h = B[r * kVjpLd + k];
-      s4 = fmaf(h, __ldg(wts + VL::kW4 + k), s4);
-      su = fmaf(h, __ldg(wts + VL::kWu + k), su);
+    // Reverse.  d3 = mask3 (c4 w4 + cu wu), into h.
+#pragma unroll
+    for (int nb = 0; nb < kH / 8; ++nb) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = 8 * nb + 2 * t + (i & 1);
+        h[nb][i] = gate(m3, nb, i,
+                        fmaf(c4[i >> 1], ws[DL::kW4 + k], cu[i >> 1] * ws[DL::kWu + k]));
+        acc[nb][i] = 0.f;
+      }
+    }
+    // lin3^T: the h branch (gated by lin2's mask) and the re-fed input
+    accumulate_t<kH / 8, kH / 8>(h, ws + DL::kW3, lane, acc);
+    m2[0] = mp[128]; m2[1] = mp[160];
+#pragma unroll
+    for (int kb = 0; kb < kIn / 8; ++kb) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) park[(4 * kb + i) * 32] = acc[kH2 / 8 + kb][i];
     }
 #pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      s4 += __shfl_xor_sync(0xffffffffu, s4, o);
-      su += __shfl_xor_sync(0xffffffffu, su, o);
+    for (int nb = 0; nb < kH / 8; ++nb) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (nb < kH2 / 8) h[nb][i] = gate(m2, nb, i, acc[nb][i]);
+        acc[nb][i] = 0.f;
+      }
     }
-    if (q == 0) {
-      const int row = row0 + r;
-      const float g0 = row < n ? __ldg(g + 2 * (size_t)row) : 0.f;
-      const float g1 = row < n ? __ldg(g + 2 * (size_t)row + 1) : 0.f;
-      const float sdf = tanhf(s4 + __ldg(wts + VL::kB4));
-      const float sig = 1.f / (1.f + expf(-(su + __ldg(wts + VL::kBu))));
-      coef[2 * r] = g0 * (1.f - sdf * sdf);
-      coef[2 * r + 1] = g1 * (0.5f * sig);
+    accumulate_t<kH2 / 8, kH / 8>(h, ws + DL::kW2, lane, acc);   // lin2^T
+    m1[0] = mp[64]; m1[1] = mp[96];
+#pragma unroll
+    for (int nb = 0; nb < kH / 8; ++nb) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        h[nb][i] = gate(m1, nb, i, acc[nb][i]);
+        acc[nb][i] = 0.f;
+      }
     }
-  }
-  __syncthreads();
+    accumulate_t<kH / 8, kH / 8>(h, ws + DL::kW1, lane, acc);    // lin1^T
+    m0[0] = mp[0]; m0[1] = mp[32];
+#pragma unroll
+    for (int nb = 0; nb < kH / 8; ++nb) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) h[nb][i] = gate(m0, nb, i, acc[nb][i]);
+    }
+    float o[kIn / 8][4];
+#pragma unroll
+    for (int kb = 0; kb < kIn / 8; ++kb) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[kb][i] = park[(4 * kb + i) * 32];
+    }
+    accumulate_t<kH / 8, kIn / 8>(h, ws + DL::kW0, lane, o);     // lin0^T + re-fed
 
-  // Reverse pass.  d pre-activation of lin3's output:
-  for (int i = tid; i < kVjpRows * kH; i += kVjpThreads) {
-    const int r = i / kH, j = i % kH;
-    const float d = coef[2 * r] * __ldg(wts + VL::kW4 + j) +
-                    coef[2 * r + 1] * __ldg(wts + VL::kWu + j);
-    A[r * kVjpLd + j] = (mask_bits(3, r, j) & 1u) ? d : 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r[half];
+      if (row >= n) continue;
+#pragma unroll
+      for (int nb = 0; nb < kIn / 8; ++nb)
+        *reinterpret_cast<float2*>(dx + (size_t)row * kIn + 8 * nb + 2 * t) =
+            make_float2(o[nb][2 * half], o[nb][2 * half + 1]);
+    }
   }
-  __syncthreads();
-  // through lin3: the h branch (masked by lin2's ReLU) and the re-fed input
-  vjp_gemm<kH, kH, 8>(A, kVjpLd, wts + VL::kT3, [&](int r, int c, float4 v) {
-    if (c < kH2)
-      *reinterpret_cast<float4*>(B + r * kVjpLd + c) = masked(v, mask_bits(2, r, c));
-    else
-      *reinterpret_cast<float4*>(X + r * kVjpLdX + c - kH2) = v;
-  });
-  __syncthreads();
-  vjp_gemm<kH2, kH, 8>(B, kVjpLd, wts + VL::kT2, [&](int r, int c, float4 v) {
-    *reinterpret_cast<float4*>(A + r * kVjpLd + c) = masked(v, mask_bits(1, r, c));
-  });
-  __syncthreads();
-  vjp_gemm<kH, kH, 8>(A, kVjpLd, wts + VL::kT1, [&](int r, int c, float4 v) {
-    *reinterpret_cast<float4*>(B + r * kVjpLd + c) = masked(v, mask_bits(0, r, c));
-  });
-  __syncthreads();
-  vjp_gemm<kH, kIn, 2>(B, kVjpLd, wts + VL::kT0, [&](int r, int c, float4 v) {
-    const int row = row0 + r;
-    if (row >= n) return;
-    const float4 xr = *reinterpret_cast<const float4*>(X + r * kVjpLdX + c);
-    *reinterpret_cast<float4*>(dx + (size_t)row * kIn + c) =
-        make_float4(v.x + xr.x, v.y + xr.y, v.z + xr.z, v.w + xr.w);
-  });
 }
 
-int launch_decoder_vjp(const float* x, const float* g, const float* wts, int n, float* dx,
+int launch_decoder_vjp(const float* x, const float* up, const float* wts, int n, float* dx,
                        void* stream) {
   if (n <= 0) return 0;
   static int sms = 0;
   const cudaError_t e = prepare(decoder_vjp_kernel, kVjpSmem, sms);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = (n + kVjpRows - 1) / kVjpRows;
-  decoder_vjp_kernel<<<blocks, kVjpThreads, kVjpSmem, static_cast<cudaStream_t>(stream)>>>(
-      x, g, wts, n, dx);
+  const int tiles = (n + 15) / 16;
+  const int wanted = (tiles + kDecoderWarps - 1) / kDecoderWarps;
+  const int blocks = wanted < sms ? wanted : sms;
+  decoder_vjp_kernel<<<blocks, kDecoderThreads, kVjpSmem,
+                       static_cast<cudaStream_t>(stream)>>>(x, up, wts, n, dx);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -762,8 +907,8 @@ int encoder_forward(const float* x, const float* wts, int n, float* out,
   return launch_encoder(x, wts, n, out, stream);
 }
 
-// x (n, 32) f32, g (n, 2) upstream gradient of [sdf, std], wts packed for the
-// VJP (99,042 f32, 16-byte aligned) -> dx (n, 32).
+// x (n, 32) f32, g (n, 2) upstream gradient of [sdf, std], wts packed decoder
+// (49,890 f32, as decoder_forward) -> dx (n, 32).
 int decoder_vjp(const float* x, const float* g, const float* wts, int n, float* dx,
                 void* stream) {
   return launch_decoder_vjp(x, g, wts, n, dx, stream);

@@ -45,7 +45,6 @@ class Decoder(nn.Module):
             self.register_buffer(f"w{i}", w.contiguous())
             self.register_buffer(f"b{i}", b.contiguous())
         self.register_buffer("packed", mlp.pack_decoder(mats))
-        self.register_buffer("packed_vjp", mlp.pack_decoder_vjp(mats))
 
     @property
     def mats(self):
@@ -64,8 +63,7 @@ class Decoder(nn.Module):
     def differentiable(self, net_in: torch.Tensor) -> torch.Tensor:
         """(N, 32) -> (N, 2) [sdf, std] under autograd in the input
         (``mlp.DecoderFn``: the backward is the ``decoder_vjp`` kernel)."""
-        return mlp.DecoderFn.apply(net_in.contiguous(), self.packed, self.packed_vjp,
-                                   self.mats)
+        return mlp.DecoderFn.apply(net_in.contiguous(), self.packed, self.mats)
 
 
 class DecoderConfig:

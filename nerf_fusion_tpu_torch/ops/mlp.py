@@ -27,7 +27,6 @@ from . import cuda_build
 DECODER_IN = 32
 DECODER_LATENT = 29
 DECODER_PACKED = 49890
-DECODER_VJP_PACKED = 99042
 ENCODER_IN = 6
 ENCODER_OUT = 29
 ENCODER_PACKED = 27264
@@ -92,17 +91,6 @@ def pack_decoder(mats) -> torch.Tensor:
     for i, (w, b) in enumerate(mats):
         parts += [_fragments(w) if i < 4 else w.reshape(-1), b.reshape(-1)]
     return torch.cat(parts).contiguous()
-
-
-def pack_decoder_vjp(mats) -> torch.Tensor:
-    """Folded decoder [(W, b)] -> the VJP kernel's flat f32 buffer: the four
-    hidden layers' (in, out) matrices row-major, then their transposes,
-    then the four hidden biases, lin4's column, its bias, unc's column and
-    its bias."""
-    (w0, b0), (w1, b1), (w2, b2), (w3, b3), (w4, b4), (wu, bu) = mats
-    hidden = (w0, w1, w2, w3)
-    return torch.cat([w.reshape(-1) for w in hidden] + [w.T.reshape(-1) for w in hidden]
-                     + [b0, b1, b2, b3, w4.reshape(-1), b4, wu.reshape(-1), bu]).contiguous()
 
 
 ENCODER_CHUNK = 64      # columns of the 256-wide layer per chunk in the kernel
@@ -271,22 +259,22 @@ def encoder_forward(x: torch.Tensor, packed: torch.Tensor, mats) -> torch.Tensor
     return out
 
 
-def decoder_vjp(x: torch.Tensor, g: torch.Tensor, packed_vjp: torch.Tensor,
+def decoder_vjp(x: torch.Tensor, g: torch.Tensor, packed: torch.Tensor,
                 mats) -> torch.Tensor:
     """The eval decoder's vector-Jacobian product in its input: x (N, 32)
-    and g (N, 2), the upstream gradient of [sdf, std] -> dx (N, 32)."""
-    _check(x, DECODER_IN, packed_vjp, DECODER_VJP_PACKED, "decoder_vjp", f64_on_cpu=True)
+    and g (N, 2), the upstream gradient of [sdf, std] -> dx (N, 32).  The
+    kernel reads the forward kernels' ``packed`` weights, the transposed
+    products' fragments by a transposed index map."""
+    _check(x, DECODER_IN, packed, DECODER_PACKED, "decoder_vjp", f64_on_cpu=True)
     if g.dtype != x.dtype or tuple(g.shape) != (x.shape[0], 2) or not g.is_contiguous():
         raise ValueError(f"decoder_vjp: g must be a contiguous ({x.shape[0]}, 2) {x.dtype} "
                          f"tensor, got {tuple(g.shape)} {g.dtype}")
-    if cuda_build.on_cpu("decoder_vjp", x, g, packed_vjp):
+    if cuda_build.on_cpu("decoder_vjp", x, g, packed):
         return decoder_vjp_plain(x, g, mats)
-    if packed_vjp.data_ptr() % 16:
-        raise ValueError("decoder_vjp: packed weights must be 16-byte aligned")
     dx = torch.empty_like(x)
     lib = cuda_build.load("mlp")
     cuda_build.check(lib.decoder_vjp(
-        x.data_ptr(), g.data_ptr(), packed_vjp.data_ptr(), x.shape[0], dx.data_ptr(),
+        x.data_ptr(), g.data_ptr(), packed.data_ptr(), x.shape[0], dx.data_ptr(),
         cuda_build.stream_ptr(x.device)), "decoder_vjp")
     cuda_build.count_launch(decoder_vjp)
     return dx
@@ -294,20 +282,20 @@ def decoder_vjp(x: torch.Tensor, g: torch.Tensor, packed_vjp: torch.Tensor,
 
 class DecoderFn(torch.autograd.Function):
     """The eval decoder as a differentiable function of its input:
-    ``DecoderFn.apply(x, packed, packed_vjp, mats)`` -> (N, 2) [sdf, std];
-    forward ``decoder_forward``, backward ``decoder_vjp`` on the saved
-    input (the weights are constants)."""
+    ``DecoderFn.apply(x, packed, mats)`` -> (N, 2) [sdf, std]; forward
+    ``decoder_forward``, backward ``decoder_vjp`` on the saved input, both
+    on the same packed weights (constants)."""
 
     @staticmethod
-    def forward(ctx, x, packed, packed_vjp, mats):
+    def forward(ctx, x, packed, mats):
         ctx.save_for_backward(x)
-        ctx.packed_vjp, ctx.mats = packed_vjp, mats
+        ctx.packed, ctx.mats = packed, mats
         return decoder_forward(x, packed, mats)
 
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        return decoder_vjp(x, g.contiguous(), ctx.packed_vjp, ctx.mats), None, None, None
+        return decoder_vjp(x, g.contiguous(), ctx.packed, ctx.mats), None, None
 
 
 decoder_forward.launches = 0

@@ -202,7 +202,7 @@ def test_decoder_vjp_on_cpu_is_the_plain_version_and_counts_nothing(model):
     gen = torch.Generator().manual_seed(3)
     x, g = 0.4 * torch.randn(70, 32, generator=gen), torch.randn(70, 2, generator=gen)
     n0 = mlp.decoder_vjp.launches
-    assert torch.equal(mlp.decoder_vjp(x, g, dec.packed_vjp, dec.mats),
+    assert torch.equal(mlp.decoder_vjp(x, g, dec.packed, dec.mats),
                        mlp.decoder_vjp_plain(x, g, dec.mats))
     xr = x.clone().requires_grad_()
     (dec.differentiable(xr) * g).sum().backward()
@@ -210,23 +210,26 @@ def test_decoder_vjp_on_cpu_is_the_plain_version_and_counts_nothing(model):
     assert mlp.decoder_vjp.launches == n0
     for bad_g in (g[:, :1], g.double(), g.T.contiguous().T):
         with pytest.raises(ValueError):
-            mlp.decoder_vjp(x, bad_g, dec.packed_vjp, dec.mats)
-    with pytest.raises(ValueError):
-        mlp.decoder_vjp(x, g, dec.packed, dec.mats)
+            mlp.decoder_vjp(x, bad_g, dec.packed, dec.mats)
+    for bad_packed in (dec.packed[:-1], dec.packed.double(), model.encoder.packed):
+        with pytest.raises(ValueError):
+            mlp.decoder_vjp(x, g, bad_packed, dec.mats)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 63, 64, 65, 5000, 327680])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 63, 64, 65, 5000, 132 * 8 * 16 + 16 * 37 + 5,
+                               327680])
 def test_decoder_vjp_kernel_matches_plain(cuda_device, model, n):
-    """Ragged sizes (a block takes 64 rows) up to the refinement's 8 x 40960
-    rows: dx within 1e-3 of each row's largest entry on 99.9 % of the rows;
-    one launch counted."""
+    """Ragged sizes (a warp takes 16-row tiles, 8 warps a block, one block
+    an SM; 17493 rows give the 132 blocks' warps a second round and end on a
+    partial tile) up to the refinement's 8 x 40960 rows: dx within 1e-3 of
+    each row's largest entry on 99.9 % of the rows; one launch counted."""
     dec = model.decoder.to(cuda_device)
     gen = torch.Generator().manual_seed(n)
     x = (0.4 * torch.randn(n, 32, generator=gen)).to(cuda_device)
     g = torch.randn(n, 2, generator=gen).to(cuda_device)
     n0 = mlp.decoder_vjp.launches
-    dx = mlp.decoder_vjp(x, g, dec.packed_vjp, dec.mats)
+    dx = mlp.decoder_vjp(x, g, dec.packed, dec.mats)
     assert mlp.decoder_vjp.launches == n0 + 1
     assert _vjp_rows_within(dx, mlp.decoder_vjp_plain(x, g, dec.mats)) >= 0.999
 

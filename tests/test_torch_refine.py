@@ -92,7 +92,7 @@ def test_decoder_vjp_plain_matches_jax():
     x = (rng.randn(600, 32) * 0.4).astype(np.float32)
     g = rng.randn(600, 2).astype(np.float32)
     want = _vjp_jax(jm.decoder_params, jm.decoder_config, x, g)
-    got = mlp.decoder_vjp(torch.as_tensor(x), torch.as_tensor(g), tm.decoder.packed_vjp,
+    got = mlp.decoder_vjp(torch.as_tensor(x), torch.as_tensor(g), tm.decoder.packed,
                           tm.decoder.mats).numpy()
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
@@ -126,7 +126,7 @@ def test_decoder_fn_gradcheck_float64():
     x = (0.4 * torch.randn(6, 32, generator=torch.Generator().manual_seed(0),
                            dtype=torch.float64)).requires_grad_()
     assert torch.autograd.gradcheck(
-        lambda v: mlp.DecoderFn.apply(v, dec.packed, dec.packed_vjp, mats64), (x,))
+        lambda v: mlp.DecoderFn.apply(v, dec.packed, mats64), (x,))
 
 
 def _jax_loss(latents, state, cfg, params, dec_cfg, points, normals, valid, gt_sdf,
