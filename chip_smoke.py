@@ -16,14 +16,19 @@
    the host's cost of issuing it.  The gathers are held bit-exact, NaN
    positions included, and timed with the L2 flushed before each call (a
    128 MB copy, its own events not counted), so that no row reads faster
-   than its bound from device memory; ``select_gather`` is held bitwise at
-   the fast path's level-0 selection.  The photometric kernel's valid count
-   exactly, its H, g and energy to 1e-4 of each output's largest entry, and
-   two calls bitwise, at the dense level-0 shape (stride 2, and stride 1
-   as ``configs/fusion-lr-kt.yaml`` runs it) and at the fast path's
-   24576-pixel selection.  ``gn_step`` on every step of a real frame's GN
-   loops (dense and sparse), replayed on copies of the recorded state: the
-   new pose within 1e-5 of its largest entry, the decisions equal.
+   than its bound from device memory; their ragged edges (M not a
+   multiple of the row gather's R, an index vector that is not 16-byte
+   aligned, a lane row of B % 4 != 0 or of ``LANE_MAX`` lanes, fewer and
+   more lane rows than the grid) are held bit-exact too, and ptxas's
+   registers and spills are printed for each gather instance;
+   ``select_gather`` is held bitwise at the fast path's level-0 selection.
+   The photometric kernel's valid count exactly, its H, g and energy to
+   1e-4 of each output's largest entry, and two calls bitwise, at the dense
+   level-0 shape (stride 2, and stride 1 as ``configs/fusion-lr-kt.yaml``
+   runs it) and at the fast path's 24576-pixel selection.  ``gn_step`` on
+   every step of a real frame's GN loops (dense and sparse), replayed on
+   copies of the recorded state: the new pose within 1e-5 of its largest
+   entry, the decisions equal.
    ``decoder_vjp`` at the refinement's 327680 rows: dx within 1e-3 of each
    row's largest entry on 99.9 % of the rows, its library call the same VJP
    by autograd over ``decoder_forward_plain``; its line gives ptxas's
@@ -399,8 +404,10 @@ def gather_phase(dev, fr_next):
     lane = gather_case(gather.lane_gather, gather.lane_gather_plain, (src, lidx),
                        lambda: torch.gather(src, 1, lib_idx), H * B * 8 + touched * 4,
                        f"({H}, {B}) at ({H}, {B})", flush)
+    row_edges, lane_edges = gather_edges(dev, rng)
     rows = [
-        dict(name="row_gather", err=max(dense["err"], probe["err"], select["err"]), tol=0.0,
+        dict(name="row_gather", err=max(dense["err"], probe["err"], select["err"],
+                                        *row_edges.values()), tol=0.0,
              source="nerf_fusion_tpu_torch/csrc/gather.cu",
              replaces="tools/gather_exp3.py:88 (pallas_gather)",
              shape=select["shape"] + " (the selection's shape; the fast path runs "
@@ -412,17 +419,18 @@ def gather_phase(dev, fr_next):
                          call_ms=v["call_ms"], plain_ms=v["plain_ms"],
                          bound_ms=v["bound"][0], library_ms=v["library_ms"])
                     for k, v in (("dense_warp", dense), ("probe", probe),
-                                 ("selection_c4", select))]),
+                                 ("selection_c4", select))],
+             edge_cases=row_edges),
         dict(name="row_gather_c1", err=single["err"], tol=0.0,
              source="nerf_fusion_tpu_torch/csrc/gather.cu",
              replaces="tools/gather_exp3.py:115 (pallas_gather1)", shape=single["shape"],
              ms=single["ms"], call_ms=single["call_ms"], plain_ms=single["plain_ms"],
              bound=single["bound"], library_ms=single["library_ms"]),
-        dict(name="lane_gather", err=lane["err"], tol=0.0,
+        dict(name="lane_gather", err=max(lane["err"], *lane_edges.values()), tol=0.0,
              source="nerf_fusion_tpu_torch/csrc/gather.cu",
              replaces="tools/gather_exp4.py:72 (lane_gather)", shape=lane["shape"],
              ms=lane["ms"], call_ms=lane["call_ms"], plain_ms=lane["plain_ms"],
-             bound=lane["bound"], library_ms=lane["library_ms"]),
+             bound=lane["bound"], library_ms=lane["library_ms"], edge_cases=lane_edges),
         dict(name="select_gather", err=fused["err"], tol=0.0,
              source="nerf_fusion_tpu_torch/csrc/gather.cu",
              replaces="tools/gather_exp3.py:88 (pallas_gather) at C = 4, with the rest of "
@@ -434,12 +442,61 @@ def gather_phase(dev, fr_next):
     print(f"gather rows timed with the L2 flushed before each call "
           f"({torch.cuda.get_device_name(0)})", flush=True)
     for k, v in (("dense_warp", dense), ("probe", probe), ("selection_c4", select),
-                 ("select_gather", fused)):
+                 ("select_gather", fused), ("row_gather_c1", single), ("lane_gather", lane)):
         if not v["err"] <= 0.0:
             fail(f"{k} differs from its plain version: {v['err']}")
+    for k, err in {**row_edges, **lane_edges}.items():
+        if not err <= 0.0:
+            fail(f"{k} differs from its plain version: {err}")
+    print(f"gather edge cases bit-exact, NaN positions included: {sorted(row_edges)} "
+          f"{sorted(lane_edges)}", flush=True)
     if not sel_match:
         fail("select_photometric_pixels on the card differs from the CPU's selection")
     return rows
+
+
+def gather_edges(dev, rng) -> tuple:
+    """The gathers' ragged edges, each against its plain version (max abs
+    error, inf if the NaN positions differ): the row gather at every width
+    with M not a multiple of the plan's R (R = 2 at 307201 rows, and at
+    600003 with a second round of the grid-stride loop) and on an index
+    vector 1, 2 or 3 indices into an aligned one (``idx[1:]``), NaN rows and
+    out-of-range indices in each; the lane gather with B % 4 != 0 and a
+    misaligned index vector (rows staged by the block), at B = LANE_MAX, and
+    with fewer and more rows than its grid."""
+    import numpy as np
+    import torch
+
+    from nerf_fusion_tpu_torch.ops import gather
+
+    n = 307200
+    rows = {}
+    for c in (1, 2, 4):
+        r = torch.as_tensor(rng.normal(size=(n,) if c == 1 else (n, c)).astype(np.float32),
+                            device=dev)
+        r[torch.as_tensor(rng.integers(0, n, 50), device=dev)] = float("nan")
+        rows[c] = r
+    row_errs = {}
+    for c in (1, 2, 4):
+        for m, off in ((24577, 0), (76803, 0), (307201, 0), (600003, 0), (24576, 1),
+                       (76800, 2), (307200, 3), (600002, 2)):
+            full = torch.as_tensor(rng.integers(-100, n + 100, m + off).astype(np.int32),
+                                   device=dev)
+            idx = full[off:]
+            row_errs[f"row_gather_c{c}_m{m}_off{off}"] = nan_err(
+                gather.row_gather(rows[c], idx), gather.row_gather_plain(rows[c], idx))
+    lane_errs = {}
+    for h, b, off in ((37, 3201, 0), (300, 3200, 1), (5, gather.LANE_MAX, 0),
+                      (700, gather.LANE_MAX, 0), (7, 3200, 0), (2000, 1280, 0)):
+        src = torch.as_tensor(rng.normal(size=(h, b)).astype(np.float32), device=dev)
+        src[torch.as_tensor(rng.random((h, b)) < 0.001, device=dev)] = float("nan")
+        flat = torch.as_tensor(rng.integers(-b - 3, b + 3, h * b + off).astype(np.int32),
+                               device=dev)
+        idx = flat[off:].view(h, b)
+        lane_errs[f"lane_gather_h{h}_b{b}_off{off}"] = nan_err(
+            gather.lane_gather(src, idx), gather.lane_gather_plain(src, idx))
+    torch.cuda.synchronize()
+    return row_errs, lane_errs
 
 
 def _warp_touched(level, krkinv, kt, stride, min_grad) -> int:
@@ -962,6 +1019,29 @@ def ptxas_report(report: dict):
                 fn = m.group(1)
             elif "registers" in line or "spill" in line or "error" in line:
                 print(f"  {name}: {fn[-48:]}: {line.strip()}")
+
+
+def gather_ptxas(report: dict) -> dict:
+    """ptxas's registers and spill bytes for each instance of the row gather
+    (``row_gather<C, R, vector index>``) and for the lane gather, printed
+    on one line; empty where the library was already built."""
+    out, fn = {}, ""
+    for line in report.get("gather", {}).get("ptxas", "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            t = re.search(r"row_gather_kernelILi(\d)ELi(\d)ELb(\d)E", fn)
+            fn = (f"row_gather<{t.group(1)},{t.group(2)},{t.group(3)}>" if t else
+                  "lane_gather" if "lane_gather_kernel" in fn else "")
+        elif fn:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out.setdefault(fn, {})["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                out.setdefault(fn, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+    print(f"gather kernels, ptxas: {json.dumps(out)}", flush=True)
+    return out
 
 
 def tensor_core_counts() -> dict:
@@ -2307,6 +2387,7 @@ def main() -> int:
     report = cuda_build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(report)}", flush=True)
     ptxas_report(report)
+    gather_ptxas(report)
     tensor_cores = tensor_core_counts()
     rows = kernel_phase(dev)
     vjp_summary(rows, report)
@@ -2372,7 +2453,7 @@ def main() -> int:
                                  "normal_agree_frac", "mask_diff", "pts_equal",
                                  "off_mask_zero", "repeat_equal", "ms_again",
                                  "selection_matches_cpu", "recorded_steps", "cases",
-                                 "registers", "spill_stores", "spill_loads")
+                                 "edge_cases", "registers", "spill_stores", "spill_loads")
                if k in r}})
     if sorted(k["name"] for k in kernels) != sorted(KERNEL_ROWS):
         fail(f"kernel rows {[k['name'] for k in kernels]} are not {KERNEL_ROWS}")

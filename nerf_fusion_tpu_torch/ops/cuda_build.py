@@ -23,7 +23,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("mlp", "stencil", "gather", "photometric", "gn")
+# gather_floor: the gather probe's instruments (tools/gather_probe.py)
+SOURCES = ("mlp", "stencil", "gather", "photometric", "gn", "gather_floor")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -44,9 +45,14 @@ SIGNATURES = {
         "stencil_frontend": (_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P),
     },
     "gather": {
-        "row_gather": (_P, _I, _I, _P, _I, _P, _P),
-        "lane_gather": (_P, _P, _I, _I, _P, _P),
+        "row_gather": (_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P),
+        "lane_gather": (_P, _P, _I, _I, _P, _I, _I, _P),
         "select_gather": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    },
+    "gather_floor": {
+        "empty": (_P,),
+        "chain": (_P, _P, _P, _P),
+        "clean_flush": (_P, ctypes.c_longlong, _P, _P),
     },
     "photometric": {
         "photometric_hg_dense": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _F, _F, _F, _F,
@@ -164,3 +170,18 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_SMS: dict = {}
+
+
+def sm_count(device) -> int:
+    """The device's streaming multiprocessors (cached per device)."""
+    import torch
+
+    key = torch.device(device).index
+    if key is None:
+        key = torch.cuda.current_device()
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(key).multi_processor_count
+    return _SMS[key]

@@ -22,6 +22,12 @@ A wrapper launches its kernel for a CUDA tensor (or raises) and takes the
 plain version beside it only for a CPU tensor.  ``lane_gather.launches`` and
 ``select_gather.launches`` count their kernel launches,
 ``row_gather.launches_by_c`` its launches per row width.
+
+The launch arithmetic of the two gathers is here, as pure functions that the
+CPU tests walk (``tests/test_torch_gather_layout.py``): ``row_plan`` (rows a
+thread, block, grid), ``row_vector_index`` (whether the index vector loads
+as vectors), ``lane_plan``, ``lane_bulk`` and ``lane_schedule`` (the lane
+ring's row, slot and barrier parity at each step of a block).
 """
 
 from __future__ import annotations
@@ -31,7 +37,79 @@ import torch
 from . import cuda_build
 
 ROW_WIDTHS = (1, 2, 4)
-LANE_MAX = 12288        # one source row in the 48 KB of static shared memory
+# one source row a ring slot: two slots of dynamic shared memory, 96 KB
+# (csrc/gather.cu kLaneMax)
+LANE_MAX = 12288
+SMS = 132               # an H100 SXM's SMs: the plans' default
+SM_THREADS = 2048       # resident threads an SM
+SM_BLOCKS = 32          # resident blocks an SM
+# row_gather: the most rows a thread, the largest block (csrc/gather.cu
+# kRowMaxThreads) and the smallest
+ROW_MAX_R = 2
+ROW_THREADS = 128
+ROW_MIN_THREADS = 32
+LANE_BLOCKS_PER_SM = 4  # lane_gather's persistent blocks an SM (k)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def row_plan(m: int, sms: int = SMS) -> tuple:
+    """(r, threads, blocks) of a row gather of ``m`` rows, of any width.
+
+    r rows a thread: one, doubled (up to ``ROW_MAX_R``) while one thread a
+    group would not fit the card's resident threads, so that the grid is
+    one wave and no thread waits out a second round of dependent loads.
+    Blocks of ``ROW_THREADS``, halved (down to ``ROW_MIN_THREADS``) while
+    the grid would leave an SM without a block.  The grid is at most
+    ``sms`` times the blocks an SM holds; the kernel's grid-stride loop
+    covers the rest (a second round past 2 x 132 x 2048 rows, which no
+    caller sends).  A one-off sweep on the H100 (PERF.md) found no
+    row width that wanted more rows a thread inside one wave, and R = 4
+    slower than R = 2 at 307200 rows.
+    """
+    r = 1
+    while r < ROW_MAX_R and _cdiv(m, r) > sms * SM_THREADS:
+        r *= 2
+    t = ROW_THREADS
+    while t > ROW_MIN_THREADS and _cdiv(_cdiv(m, r), t) < sms:
+        t //= 2
+    resident = min(SM_BLOCKS, SM_THREADS // t)
+    return r, t, max(1, min(_cdiv(_cdiv(m, r), t), sms * resident))
+
+
+def row_vector_index(idx_address: int, r: int) -> bool:
+    """Whether a thread's ``r`` indices load as one vector: the index vector
+    is aligned to ``r`` indices (``idx[1:]`` of an aligned vector is not).
+    Groups of r rows align on the output, which the wrapper allocates, so a
+    misaligned index vector keeps the vector stores and loads its indices
+    one by one (no scalar head: with C < 4 a head would misalign the stores)."""
+    return r > 1 and idx_address % (4 * r) == 0
+
+
+def lane_plan(h: int, sms: int = SMS, k: int = LANE_BLOCKS_PER_SM) -> int:
+    """Persistent blocks of the lane gather: min(h, sms * k)."""
+    return max(1, min(h, sms * k))
+
+
+def lane_bulk(b: int, *addresses: int) -> bool:
+    """Whether rows of ``b`` lanes arrive by bulk copy: 16-byte rows
+    (b % 4 == 0) at 16-byte aligned source, index and output."""
+    return b % 4 == 0 and all(a % 16 == 0 for a in addresses)
+
+
+def lane_schedule(h: int, blocks: int, block: int) -> list:
+    """One block's walk of the lane ring: per step i, (row, slot, parity,
+    next row or -1).  The step reads ``row`` from ``slot`` = i % 2 after
+    waiting for barrier phase ``parity`` = (i // 2) % 2 (the slot's k-th use
+    waits for parity k % 2); at its start thread 0 issues the bulk copy of
+    ``next`` into the other slot, which the previous step read."""
+    steps = []
+    for i, row in enumerate(range(block, h, blocks)):
+        nxt = row + blocks
+        steps.append((row, i % 2, (i // 2) % 2, nxt if nxt < h else -1))
+    return steps
 
 
 def row_gather_plain(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -54,7 +132,7 @@ def select_gather_plain(vals, idx, kk: int, w: int, planes):
     u = (idx % w).to(torch.float32)
     v = (idx // w).to(torch.float32)
     rows = torch.stack([p.reshape(-1) for p in planes], dim=-1)
-    cols = row_gather(rows, idx.to(torch.int32)).T.contiguous()
+    cols = row_gather_plain(rows, idx.to(torch.int32)).T.contiguous()
     return u, v, cols[0], cols[1], cols[2], cols[3], valid
 
 
@@ -119,14 +197,17 @@ def row_gather(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     rows, idx = rows.contiguous(), idx.contiguous()
     out = torch.empty((M,) + tuple(rows.shape[1:]), dtype=torch.float32,
                       device=rows.device)
-    for name, t in (("rows", rows), ("out", out)):
-        if t.data_ptr() % (4 * C):
-            raise ValueError(f"row_gather: {name} is not {4 * C}-byte aligned")
+    for name, t, align in (("rows", rows, 4 * C), ("out", out, 16)):
+        if t.data_ptr() % align:
+            raise ValueError(f"row_gather: {name} is not {align}-byte aligned")
     if M == 0:
         return out
     lib = cuda_build.load("gather")
+    r, threads, blocks = row_plan(M, cuda_build.sm_count(rows.device))
     cuda_build.check(lib.row_gather(rows.data_ptr(), N, C, idx.data_ptr(), M,
-                                    out.data_ptr(), cuda_build.stream_ptr(rows.device)),
+                                    out.data_ptr(), r, threads, blocks,
+                                    int(row_vector_index(idx.data_ptr(), r)),
+                                    cuda_build.stream_ptr(rows.device)),
                      "row_gather")
     cuda_build.count_launch(row_gather, C)
     return out
@@ -150,8 +231,10 @@ def lane_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if src.numel() == 0:
         return out
     lib = cuda_build.load("gather")
-    cuda_build.check(lib.lane_gather(src.data_ptr(), idx.data_ptr(), H, B,
-                                     out.data_ptr(), cuda_build.stream_ptr(src.device)),
+    bulk = lane_bulk(B, src.data_ptr(), idx.data_ptr(), out.data_ptr())
+    cuda_build.check(lib.lane_gather(src.data_ptr(), idx.data_ptr(), H, B, out.data_ptr(),
+                                     lane_plan(H, cuda_build.sm_count(src.device)),
+                                     int(bulk), cuda_build.stream_ptr(src.device)),
                      "lane_gather")
     cuda_build.count_launch(lane_gather)
     return out

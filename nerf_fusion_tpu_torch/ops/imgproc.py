@@ -404,7 +404,7 @@ def rgb_odometry(prev_rows, cur_intensity, cur_depth,
     v0 = torch.round((d1 * (krkinv[1, 0] * u + krkinv[1, 1] * v + krkinv[1, 2])
                       + kt[1]) / wz)
     inb, u0c, v0c, lin = _warp_index(u0, v0, W, H)
-    got = gather.row_gather(prev_rows, lin.reshape(-1))
+    got = gather.row_gather_plain(prev_rows, lin.reshape(-1))
     i0 = got[:, 0].reshape(h, w)
     d0 = got[:, 1].reshape(h, w)
     ok = ok & inb & torch.isfinite(d0) & (d0 > 0.0) \
@@ -485,7 +485,7 @@ def rgb_odometry_sparse(prev_rows, W: int, H: int, pix, fx, fy, cx, cy,
     v0 = torch.round((d1 * (krkinv[1, 0] * u + krkinv[1, 1] * v + krkinv[1, 2])
                       + kt[1]) / wz)
     inb, u0c, v0c, lin = _warp_index(u0, v0, W, H)
-    got = gather.row_gather(prev_rows, lin)
+    got = gather.row_gather_plain(prev_rows, lin)
     i0, d0 = got[:, 0], got[:, 1]
     ok = valid & inb & torch.isfinite(d0) & (d0 > 0.0) \
         & (torch.abs(wz - d0) <= max_depth_delta)

@@ -90,7 +90,7 @@ def counter_of(kernel: str):
     for key, name in _KERNELS:
         if key in kernel:
             return name
-    m = re.search(r"row_gather_kernel<(\d)>", kernel)
+    m = re.search(r"row_gather_kernel<(\d)[,>]", kernel)
     if m:
         return f"row_gather_c{m.group(1)}"
     m = re.search(r"stencil_kernel<\(\(anonymous namespace\)::Mode\)(\d)>", kernel)

@@ -12,7 +12,9 @@ of such a trace one by one, with each kernel's grid and block, and
 a trace that lost events.  ``l2_flush`` gives a ``flush`` for ``device_ms``:
 a device-to-device copy larger than the H100's 50 MB L2 before each call,
 so that the call finds its operands in device memory, not in the cache;
-the copy's own events are left out of the time.
+the copy's own events are left out of the time (a flush names the events
+it launches in ``events``; ``tools/gather_probe.py`` has one that only
+reads, which leaves no dirty line behind).
 """
 
 from __future__ import annotations
@@ -54,14 +56,21 @@ def l2_flush(device, nbytes: int = 128 << 20):
     size stay allocated while the returned function lives)."""
     src = torch.empty(nbytes, dtype=torch.uint8, device=device)
     dst = torch.empty_like(src)
-    return lambda: dst.copy_(src)
+
+    def flush():
+        dst.copy_(src)
+
+    flush.events = (FLUSH_EVENT,)
+    return flush
 
 
 def device_ms(fn, reps: int = 20, flush=None) -> float:
     """The profiler now and then returns a trace without the device's events
     (once in a ``chip_smoke.py`` run on the H100, for ``torch.gather``); such
     a trace is taken again, at most three times in all.  ``flush``: called
-    before each call (``l2_flush``); its copies are not counted."""
+    before each call (``l2_flush``); its events (``flush.events``: prefixes
+    of their names) are not counted."""
+    skip = tuple(flush.events) if flush is not None else ()
     _warm(fn)
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -72,7 +81,7 @@ def device_ms(fn, reps: int = 20, flush=None) -> float:
             torch.cuda.synchronize()
         durations = [e.time_range.elapsed_us() for e in prof.events()
                      if e.device_type == DeviceType.CUDA
-                     and not (flush is not None and e.name.startswith(FLUSH_EVENT))]
+                     and not (skip and e.name.startswith(skip))]
         if sum(durations) > 0:
             return per_call(durations, reps)[0]
     raise RuntimeError("device_ms: three traces held no device time")

@@ -415,6 +415,76 @@ def test_lane_gather_kernel_matches_plain(cuda_device, b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 2, 4])
+@pytest.mark.parametrize("m,offset", [(5, 0), (24577, 0), (76803, 0), (307201, 0),
+                                      (600003, 0), (24576, 1), (76800, 2), (307200, 3),
+                                      (600002, 2), (1027, 1)])
+def test_row_gather_kernel_ragged_edges(cuda_device, c, m, offset):
+    """M not a multiple of the plan's R (R = 2 at 307201 and 600003 rows, the
+    latter with a second round of the grid-stride loop), and an index vector
+    ``offset`` indices into an aligned one (``idx[1:]``): bit-exact, NaN rows
+    and out-of-range indices included, at the plan's R and block."""
+    g = torch.Generator().manual_seed(m + offset + c)
+    n = 307200
+    rows = torch.randn((n,) if c == 1 else (n, c), generator=g)
+    rows[torch.randint(0, n, (50,), generator=g)] = float("nan")
+    full = torch.randint(-100, n + 100, (m + offset,), generator=g, dtype=torch.int32)
+    rows, full = rows.to(cuda_device), full.to(cuda_device)
+    idx = full[offset:]
+    r = gather.row_plan(m, cuda_build.sm_count(cuda_device))[0]
+    assert gather.row_vector_index(idx.data_ptr(), r) == (r > 1 and offset % r == 0)
+    before = dict(gather.row_gather.launches_by_c)
+    out = gather.row_gather(rows, idx)
+    assert gather.row_gather.launches_by_c == {**before, c: before[c] + 1}
+    assert _nan_equal(out, gather.row_gather_plain(rows, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,b,offset", [
+    (37, 3201, 0),          # B % 4 != 0: rows staged by the block
+    (300, 3200, 1),         # misaligned index vector: staged
+    (5, gather.LANE_MAX, 0),                # the largest row, a 96 KB ring
+    (700, gather.LANE_MAX, 0),
+    (7, 3200, 0),           # fewer rows than the grid
+    (480, 3200, 0), (2000, 1280, 0),        # more rows than the grid: the ring turns
+])
+def test_lane_gather_kernel_ring_and_staged_rows(cuda_device, h, b, offset):
+    """The bulk-copy ring and the staged branch: bit-exact against the
+    plain version, wrapped and out-of-range (NaN) indices included."""
+    g = torch.Generator().manual_seed(h + b + offset)
+    src = torch.randn(h, b, generator=g)
+    src[torch.rand(h, b, generator=g) < 0.001] = float("nan")
+    flat = torch.randint(-b - 3, b + 3, (h * b + offset,), generator=g, dtype=torch.int32)
+    src, flat = src.to(cuda_device), flat.to(cuda_device)
+    idx = flat[offset:].view(h, b)
+    out = torch.empty_like(src)
+    assert gather.lane_bulk(b, src.data_ptr(), idx.data_ptr(), out.data_ptr()) == \
+        (b % 4 == 0 and offset == 0)
+    n0 = gather.lane_gather.launches
+    got = gather.lane_gather(src, idx)
+    assert gather.lane_gather.launches == n0 + 1
+    assert _nan_equal(got, gather.lane_gather_plain(src, idx))
+
+
+@pytest.mark.cuda
+def test_plain_references_launch_no_row_gather(cuda_device):
+    """``photometric_hg_plain`` and ``select_gather_plain`` on the card
+    gather in plain PyTorch: the row gather's counters do not move."""
+    before = dict(gather.row_gather.launches_by_c)
+    for sparse in (0, 1001):
+        args, kw = _photometric_case(cuda_device, sparse=sparse)
+        photometric.photometric_hg_plain(*args, **kw)
+    g = torch.Generator().manual_seed(3)
+    h, w = 61, 83
+    planes = tuple(torch.randn(h, w, generator=g).to(cuda_device) for _ in range(4))
+    vals, idx = torch.sort(torch.randn(h * w, generator=g).to(cuda_device),
+                           descending=True, stable=True)
+    gather.select_gather_plain(vals, idx, 1001, w, planes)
+    torch.cuda.synchronize()
+    assert gather.row_gather.launches_by_c == before
+
+
+@pytest.mark.cuda
 def test_selection_on_card_matches_cpu(cuda_device):
     """The sparse term's pixel selection on the card picks the pixels the
     CPU picks from the same planes (stable sort: ties lowest index first)."""
