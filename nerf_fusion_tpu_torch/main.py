@@ -10,7 +10,11 @@ into ``--output``.  Runs on the GPU unless ``--device cpu`` is given.
 A disk reader (a sequence with ``load_frame``) is wrapped in a
 ``PrefetchSequence`` unless the config says ``prefetch: false``; on the GPU
 its frames go up on a side stream unless ``prefetch_upload: false``.
-``--profile DIR`` writes a ``torch.profiler`` trace of the run there.
+``--profile DIR`` writes a ``torch.profiler`` trace of the run there
+(``trace.json``, for Perfetto or chrome://tracing) with the program's spans
+(``utils/trace.py``) on it as events of category ``program_span``, on the
+trace's clock: the kernels and the layer whose host code launched them in
+one view.
 ``--vis 1`` writes a mesh, trajectory and voxel-block preview every
 ``vis_interval`` frames under ``<output>/preview``.
 """
@@ -28,6 +32,7 @@ import torch
 from .models.io import load_model
 from .system.pipeline import FusionPipeline
 from .utils import config as exp_util
+from .utils import trace as program_trace
 from .utils.se3 import Isometry, Quaternion
 
 
@@ -122,14 +127,15 @@ def run(argv=None):
     if args.load_map:
         pipeline.map.load(args.load_map)
         pipeline.map.updated_slots[:] = True    # re-mesh everything once
-    prof = contextlib.nullcontext()
+    prof = spans = contextlib.nullcontext()
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
 
         prof = profile(activities=[ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if device.type == "cuda" else []))
+        spans = program_trace.capture()
     try:
-        with prof:
+        with prof, spans:
             results = pipeline.run(sequence, use_gt_pose=bool(args.gt_pose),
                                    max_frames=args.max_frames, output_dir=args.output)
     finally:
@@ -139,7 +145,8 @@ def run(argv=None):
         trace = Path(args.profile) / "trace.json"
         trace.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(trace))
-        logging.info("profiler trace written to %s", trace)
+        program_trace.to_chrome(spans.export(), trace)
+        logging.info("profiler trace and the program's spans written to %s", trace)
     logging.info("results: %s", results)
     return pipeline, results
 

@@ -30,6 +30,12 @@ extraction to the map's ``Worker`` (``system/worker.py``: one thread and
 one CUDA stream, shared with the async refiner).  Its host reads
 synchronise the worker's stream; it drains one round (leftovers go back to
 the map's host set).  ``current_mesh`` and ``save_ply`` join it first.
+
+Spans (``utils/trace.py``) of an incremental extraction: ``mesher.select``
+(up to the host read), ``mesher.keep_read`` (the read of the kept count),
+``mesher.decode``, ``mesher.marching_cubes``; ``mesher.drain`` around the
+fetch of pending batches.  Counters: ``mesher.extractions`` and
+``mesher.voxels_decoded`` (the kept voxels each decodes).
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ import torch
 
 from ..ops import voxel as voxops
 from ..ops.marching_cubes import marching_cubes_sparse
-from ..utils import vis
+from ..utils import trace, vis
 
 MESH_CHUNK = 512
 _TAKE = object()     # _dispatch_fused: take the updated mask from the map
@@ -181,69 +187,75 @@ def fused_extract(state, updated_mask, cfg, decoder, r: int, mesh_budget: int,
     :return: (MCResult, mesh_ids (mesh_budget,), keep (mesh_budget,) bool,
               map_overflow (), leftover (C,) bool, n_leftover ()).
     """
-    C = cfg.latent_capacity
-    dev = state.latents.device
-    positions = state.positions.long()
-    indexer = state.indexer.long()
-    upd = updated_mask & (positions >= 0)
-    if mesh_cache is not None:
-        delta = (state.latents - mesh_cache.lat[:C]).abs().amax(dim=-1)
-        gated = upd & (~mesh_cache.valid[:C] | (delta > reuse_eps))
-        if reuse_counts is not None:
-            reuse_counts.add_(torch.stack([upd.sum(), (upd & ~gated).sum()]))
-        upd = gated
-    upd_ids, upd_valid, _ = voxops.compact_by_mask(positions, upd, mesh_budget)
-    exp_ids, exp_valid = voxops.expand_neighbors6(upd_ids, upd_valid, cfg.n_xyz)
-    uniq, uniq_valid, _, _ = voxops.masked_unique(exp_ids, exp_valid, mesh_budget)
-    slots = indexer[uniq.clamp(0, cfg.n_voxels - 1)]
-    slot_c = slots.clamp(0, C - 1)
-    keep = uniq_valid & (slots >= 0) & (state.obs_count[slot_c] > cfg.ignore_count_th)
-    # Front-compact the kept rows (stable) so trailing all-padding decode
-    # chunks can be skipped.
-    perm = torch.sort((~keep).to(torch.uint8), stable=True).indices
-    uniq, keep, slot_c = uniq[perm], keep[perm], slot_c[perm]
-    batch_map = torch.full((C + 1,), -1, dtype=torch.int64, device=dev)
-    batch_map.index_copy_(0, torch.where(keep, slot_c, C),
-                          torch.arange(mesh_budget, device=dev))
-    batch_map = batch_map[:C]
-    lat_b = torch.where(keep[:, None], state.latents[slot_c], 0.0)
-    if mesh_cache is not None:
-        dst = torch.where(keep, slot_c, C)
-        mesh_cache.lat.index_copy_(0, dst, state.latents[slot_c])
-        mesh_cache.valid.index_fill_(0, dst, True)
+    with trace.span("mesher.select"):
+        C = cfg.latent_capacity
+        dev = state.latents.device
+        positions = state.positions.long()
+        indexer = state.indexer.long()
+        upd = updated_mask & (positions >= 0)
+        if mesh_cache is not None:
+            delta = (state.latents - mesh_cache.lat[:C]).abs().amax(dim=-1)
+            gated = upd & (~mesh_cache.valid[:C] | (delta > reuse_eps))
+            if reuse_counts is not None:
+                reuse_counts.add_(torch.stack([upd.sum(), (upd & ~gated).sum()]))
+            upd = gated
+        upd_ids, upd_valid, _ = voxops.compact_by_mask(positions, upd, mesh_budget)
+        exp_ids, exp_valid = voxops.expand_neighbors6(upd_ids, upd_valid, cfg.n_xyz)
+        uniq, uniq_valid, _, _ = voxops.masked_unique(exp_ids, exp_valid, mesh_budget)
+        slots = indexer[uniq.clamp(0, cfg.n_voxels - 1)]
+        slot_c = slots.clamp(0, C - 1)
+        keep = uniq_valid & (slots >= 0) & (state.obs_count[slot_c] > cfg.ignore_count_th)
+        # Front-compact the kept rows (stable) so trailing all-padding decode
+        # chunks can be skipped.
+        perm = torch.sort((~keep).to(torch.uint8), stable=True).indices
+        uniq, keep, slot_c = uniq[perm], keep[perm], slot_c[perm]
+        batch_map = torch.full((C + 1,), -1, dtype=torch.int64, device=dev)
+        batch_map.index_copy_(0, torch.where(keep, slot_c, C),
+                              torch.arange(mesh_budget, device=dev))
+        batch_map = batch_map[:C]
+        lat_b = torch.where(keep[:, None], state.latents[slot_c], 0.0)
+        if mesh_cache is not None:
+            dst = torch.where(keep, slot_c, C)
+            mesh_cache.lat.index_copy_(0, dst, state.latents[slot_c])
+            mesh_cache.valid.index_fill_(0, dst, True)
 
-    # Deferral set: allocated, confident slots in the 6-neighbour dilation
-    # of the updated set that this batch did not take.
-    upd_grid = torch.zeros(cfg.n_voxels + 1, dtype=torch.bool, device=dev)
-    upd_grid[torch.where(upd, positions, cfg.n_voxels)] = True
-    upd_grid = upd_grid[:cfg.n_voxels]
-    pos_xyz = voxops.unlinearize_id(positions.clamp_min(0), cfg.n_xyz)
-    need = upd.clone()
-    for d in ([-1, 0, 0], [1, 0, 0], [0, -1, 0], [0, 1, 0], [0, 0, -1], [0, 0, 1]):
-        nb = pos_xyz + torch.as_tensor(d, device=dev)[None]
-        inb = voxops.in_bounds(nb, cfg.n_xyz)
-        ngid = voxops.linearize_id(voxops.clamp_grid(nb, cfg.n_xyz), cfg.n_xyz)
-        need |= inb & upd_grid[ngid]
-    need &= (positions >= 0) & (state.obs_count > cfg.ignore_count_th)
-    leftover = need & (batch_map < 0)
-    n_leftover = leftover.sum()
+        # Deferral set: allocated, confident slots in the 6-neighbour dilation
+        # of the updated set that this batch did not take.
+        upd_grid = torch.zeros(cfg.n_voxels + 1, dtype=torch.bool, device=dev)
+        upd_grid[torch.where(upd, positions, cfg.n_voxels)] = True
+        upd_grid = upd_grid[:cfg.n_voxels]
+        pos_xyz = voxops.unlinearize_id(positions.clamp_min(0), cfg.n_xyz)
+        need = upd.clone()
+        for d in ([-1, 0, 0], [1, 0, 0], [0, -1, 0], [0, 1, 0], [0, 0, -1], [0, 0, 1]):
+            nb = pos_xyz + torch.as_tensor(d, device=dev)[None]
+            inb = voxops.in_bounds(nb, cfg.n_xyz)
+            ngid = voxops.linearize_id(voxops.clamp_grid(nb, cfg.n_xyz), cfg.n_xyz)
+            need |= inb & upd_grid[ngid]
+        need &= (positions >= 0) & (state.obs_count > cfg.ignore_count_th)
+        leftover = need & (batch_map < 0)
+        n_leftover = leftover.sum()
 
     if mesh_budget % MESH_CHUNK:
         raise ValueError("mesh_budget must be a MESH_CHUNK multiple")
-    n_keep = int(keep.sum())              # one host read: chunks to decode
-    shape = (mesh_budget, 2 * r, 2 * r, 2 * r)
-    # all-padding chunks: inert fill (positive sdf, huge std)
-    cube_sdf = torch.ones(shape, dtype=torch.float32, device=dev)
-    cube_std = torch.full(shape, 1e6, dtype=torch.float32, device=dev)
-    for s in range(0, n_keep, MESH_CHUNK):
-        csdf, cstd = decode_cubes(decoder, lat_b[s:s + MESH_CHUNK], r, fast,
-                                  keep[s:s + MESH_CHUNK], reeval_budget)
-        cube_sdf[s:s + MESH_CHUNK] = csdf
-        cube_std[s:s + MESH_CHUNK] = cstd
+    with trace.span("mesher.keep_read"):
+        n_keep = int(keep.sum())          # one host read: chunks to decode
+    trace.count("mesher.extractions")
+    trace.count("mesher.voxels_decoded", n_keep)
+    with trace.span("mesher.decode"):
+        shape = (mesh_budget, 2 * r, 2 * r, 2 * r)
+        # all-padding chunks: inert fill (positive sdf, huge std)
+        cube_sdf = torch.ones(shape, dtype=torch.float32, device=dev)
+        cube_std = torch.full(shape, 1e6, dtype=torch.float32, device=dev)
+        for s in range(0, n_keep, MESH_CHUNK):
+            csdf, cstd = decode_cubes(decoder, lat_b[s:s + MESH_CHUNK], r, fast,
+                                      keep[s:s + MESH_CHUNK], reeval_budget)
+            cube_sdf[s:s + MESH_CHUNK] = csdf
+            cube_std[s:s + MESH_CHUNK] = cstd
 
-    result = marching_cubes_sparse(
-        indexer, batch_map, uniq, keep, cube_sdf, cube_std, cfg.n_xyz,
-        cfg.voxel_size, cfg.bound_min, r, C, max_std, tri_budget)
+    with trace.span("mesher.marching_cubes"):
+        result = marching_cubes_sparse(
+            indexer, batch_map, uniq, keep, cube_sdf, cube_std, cfg.n_xyz,
+            cfg.voxel_size, cfg.bound_min, r, C, max_std, tri_budget)
     return result, uniq, keep, state.overflow, leftover, n_leftover
 
 
@@ -475,6 +487,10 @@ class Mesher:
             pending, self._pending = self._pending, []
         if not pending:
             return 0
+        with trace.span("mesher.drain"):
+            return self._drain(pending, host_leftover)
+
+    def _drain(self, pending: list, host_leftover: bool) -> int:
         total_leftover = 0
         vmap = self.map
         for p in pending:

@@ -31,11 +31,22 @@ so it is no faster than K single frames; the trajectory is the same.
 ``<output>/preview``: the mesh as it stands (after the async extraction,
 if one runs), the trajectory so far and the voxel blocks' wireframes
 (``write_preview``; its time is the ``vis_preview`` stage).
-``verbose_timing: true`` logs each frame's track, integrate and mesh ms.
+
+Each frame is a ``pipeline.frame`` span (``utils/trace.py``) holding one
+span a layer it calls: ``tracker.track``, ``map.integrate`` and
+``mesher.extract``, with the layers' own spans inside.  ``run`` keeps the
+totals of the stages' spans alone (unless a capture is open already, as
+``main --profile`` opens one) and builds ``stats.json``'s ``timing`` from
+them: the host's seconds of each stage, which hold the device's time only
+where the stage waited on the device.  ``stats.json``'s ``counters`` are
+the run's: GN evaluations by group (``tracker.gn_evals.g<k>``), the
+mesher's extractions and the voxels they decoded.  ``verbose_timing:
+true`` logs each frame's track, integrate and mesh ms from the same spans.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 from pathlib import Path
@@ -43,11 +54,30 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.evaluate import ate_rmse, mesh_abs_sdf_error, save_tum_trajectory
-from ..utils.meters import StageTimer
 from .map import SparseVoxelMap
 from .mesher import Mesher
 from .tracker import SDFTracker
+
+# stats.json's timing: each stage and its span
+STAGES = (("track", "tracker.track"), ("integrate", "map.integrate"),
+          ("mesh", "mesher.extract"), ("vis_preview", "pipeline.vis_preview"),
+          ("join", "pipeline.join"), ("final_mesh", "pipeline.final_mesh"))
+STAGE_SPANS = frozenset(name for _, name in STAGES)
+# ``pipeline.frame``'s attributes, shared so that no frame allocates them
+_CADENCE, _TRACKED = {"cadence": True}, {"cadence": False}
+
+
+def stage_timing(totals: dict) -> dict:
+    """Each stage that ran, from its span's (count, total ns, longest ns)."""
+    out = {}
+    for stage, name in STAGES:
+        if name in totals:
+            n, tot, longest = totals[name]
+            out[stage] = {"total_s": 1e-9 * tot, "count": n, "mean_ms": 1e-6 * tot / n,
+                          "max_ms": 1e-6 * longest}
+    return out
 
 
 class FusionPipeline:
@@ -68,7 +98,6 @@ class FusionPipeline:
         budget = point_budget or int(getattr(args.mapping, "points_capacity", 16384))
         self.map.mesher = self.mesher
         self.tracker = SDFTracker(self.map, args.tracking, point_budget=budget)
-        self.timer = StageTimer()
         self.verbose_timing = bool(getattr(args, "verbose_timing", False))
         self.frames_per_call = int(getattr(args, "frames_per_call", 1))
         if self.frames_per_call < 1:
@@ -82,24 +111,28 @@ class FusionPipeline:
         if not buf:
             return
         depth_cut = (self.args.depth_cut_min, self.args.depth_cut_max)
-        self.timer.start("track")
-        if len(buf) == self.frames_per_call:
-            def stack(arrs):
-                return torch.stack([torch.as_tensor(a, device=self.device) for a in arrs])
+        with trace.span("tracker.track"):
+            if len(buf) == self.frames_per_call:
+                def stack(arrs):
+                    return torch.stack([torch.as_tensor(a, device=self.device) for a in arrs])
 
-            self.tracker.track_camera_block(stack([f.rgb for f in buf]),
-                                            stack([f.depth for f in buf]), buf[0].calib,
-                                            depth_cut=depth_cut)
-        else:
-            for f in buf:
-                self.tracker.track_camera(f.rgb, f.depth, f.calib, depth_cut=depth_cut)
-        self.timer.stop("track")
+                self.tracker.track_camera_block(stack([f.rgb for f in buf]),
+                                                stack([f.depth for f in buf]), buf[0].calib,
+                                                depth_cut=depth_cut)
+            else:
+                for f in buf:
+                    self.tracker.track_camera(f.rgb, f.depth, f.calib, depth_cut=depth_cut)
 
     def process_frame(self, frame, frame_id: int, use_gt_pose: bool = False):
         """One frame through the pipeline; returns the device pose (R, t), or
         None for a frame buffered for a block (``frames_per_call`` > 1)."""
         is_cadence = (frame_id % self.args.integrate_interval == 0
                       or frame_id % self.args.meshing_interval == 0)
+        with trace.span("pipeline.frame", frame=frame_id,
+                        attrs=_CADENCE if is_cadence else _TRACKED):
+            return self._process_frame(frame, frame_id, use_gt_pose, is_cadence)
+
+    def _process_frame(self, frame, frame_id: int, use_gt_pose: bool, is_cadence: bool):
         if self.frames_per_call > 1 and not (is_cadence or frame_id == 0 or use_gt_pose):
             self._frame_buf.append(frame)
             if len(self._frame_buf) == self.frames_per_call:
@@ -114,34 +147,33 @@ class FusionPipeline:
         elif use_gt_pose:
             set_pose = frame.gt_pose
 
-        self.timer.start("track")
-        pose = self.tracker.track_camera(frame.rgb, frame.depth, frame.calib,
-                                         set_pose=set_pose, depth_cut=depth_cut)
-        self._log_stage(frame_id, "track")
+        with trace.span("tracker.track") as sp:
+            pose = self.tracker.track_camera(frame.rgb, frame.depth, frame.calib,
+                                             set_pose=set_pose, depth_cut=depth_cut)
+        self._log_stage(frame_id, "track", sp)
 
         if frame_id % self.args.integrate_interval == 0:
             pts, nrm, mask = self.tracker.last_processed_pc
-            self.timer.start("integrate")
-            self.map.integrate_keyframe(pts, nrm, valid=mask, pose=pose,
-                                        do_optimize=self.do_optimize,
-                                        async_optimize=self.run_async)
-            self._log_stage(frame_id, "integrate")
+            with trace.span("map.integrate") as sp:
+                self.map.integrate_keyframe(pts, nrm, valid=mask, pose=pose,
+                                            do_optimize=self.do_optimize,
+                                            async_optimize=self.run_async)
+            self._log_stage(frame_id, "integrate", sp)
         if frame_id % self.args.meshing_interval == 0:
-            self.timer.start("mesh")
             # the fetch is deferred to the next read of the mesh (sync), or
             # the worker fetches (async)
-            self.mesher.extract(self.args.resolution,
-                                max_std=getattr(self.args, "max_std", 0.15),
-                                extract_async=self.run_async, materialize=False)
-            self._log_stage(frame_id, "mesh")
+            with trace.span("mesher.extract") as sp:
+                self.mesher.extract(self.args.resolution,
+                                    max_std=getattr(self.args, "max_std", 0.15),
+                                    extract_async=self.run_async, materialize=False)
+            self._log_stage(frame_id, "mesh", sp)
         return pose
 
-    def _log_stage(self, frame_id: int, stage: str):
-        """Stop the stage's timer; with ``verbose_timing`` log its host ms
-        (the enqueue, unless the stage waited on the device)."""
-        dt = self.timer.stop(stage)
-        if self.verbose_timing:
-            logging.info("frame %d %s %.0f ms", frame_id, stage, 1e3 * dt)
+    def _log_stage(self, frame_id: int, stage: str, sp):
+        """With ``verbose_timing``, log the stage's span in host ms (the
+        enqueue, unless the stage waited on the device) when it was recorded."""
+        if self.verbose_timing and sp is not trace.NOOP:
+            logging.info("frame %d %s %.2f ms", frame_id, stage, sp.ms)
 
     def trajectory(self):
         return self.tracker.pose_history()
@@ -167,22 +199,27 @@ class FusionPipeline:
         vis_on = bool(getattr(self.args, "vis", False)) and output_dir is not None
         vis_interval = int(getattr(self.args, "vis_interval", None)
                            or self.args.meshing_interval)
-        for i in range(n):
-            frame = next(sequence)
-            logging.info("Frame ID = %d", i)
-            self.process_frame(frame, i, use_gt_pose=use_gt_pose)
-            if vis_on and i % vis_interval == 0 and i > 0:
-                with self.timer.scope("vis_preview"):
-                    self.write_preview(Path(output_dir) / "preview", i)
-        self.flush_frames()
-        with self.timer.scope("join"):
-            self.mesher.join_async()
-            self.map.join_refiner()
-        with self.timer.scope("final_mesh"):
-            self.mesher.extract(self.args.resolution,
-                                max_std=getattr(self.args, "max_std", 0.15))
+        open_cap = trace.active()
+        with (contextlib.nullcontext(open_cap) if open_cap is not None
+              else trace.capture(summary=STAGE_SPANS)) as cap:
+            for i in range(n):
+                with trace.span("pipeline.read"):
+                    frame = next(sequence)
+                logging.info("Frame ID = %d", i)
+                self.process_frame(frame, i, use_gt_pose=use_gt_pose)
+                if vis_on and i % vis_interval == 0 and i > 0:
+                    with trace.span("pipeline.vis_preview"):
+                        self.write_preview(Path(output_dir) / "preview", i)
+            self.flush_frames()
+            with trace.span("pipeline.join"):
+                self.mesher.join_async()
+                self.map.join_refiner()
+            with trace.span("pipeline.final_mesh"):
+                self.mesher.extract(self.args.resolution,
+                                    max_std=getattr(self.args, "max_std", 0.15))
+            timing, counters = stage_timing(cap.totals()), dict(cap.counters)
         poses = self.trajectory()
-        results = {"n_frames": n, "timing": self.timer.summary()}
+        results = {"n_frames": n, "timing": timing, "counters": counters}
         if self.tracker.drop_fracs:
             drops = torch.cat([d.reshape(-1) for d in self.tracker.drop_fracs]).cpu().numpy()
             results["box_filter_drop_frac"] = {

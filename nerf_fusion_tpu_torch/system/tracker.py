@@ -29,6 +29,12 @@ stream first, as the warm-up) and replayed on every later frame; on the CPU
 they run eagerly.  A capture or replay that fails raises.  A frame with
 ``set_pose`` runs eagerly, as JAX's does.
 
+Spans (``utils/trace.py``): ``tracker.prelude``, one ``tracker.eval`` and
+``tracker.done_read`` an evaluation and ``tracker.epilogue`` around the
+replays or eager calls of a tracked frame; ``frontend.preprocess`` and
+``tracker.finish`` on the ``set_pose`` path.  Counters:
+``tracker.gn_evals.g<k>``, group k's evaluations.
+
 SDF residuals are ``r = sdf(T p) / std`` with std held constant; the
 position gradient is the decoder kernel's forward-mode d sdf / d rel,
 chained to world coordinates as (1 / std) grad / voxel_size and to the
@@ -50,6 +56,7 @@ import numpy as np
 import torch
 
 from ..utils import se3_torch as st
+from ..utils import trace
 from ..utils.config import dict_to_args
 from ..utils.se3 import Isometry
 from ..ops import gn, imgproc, launches, photometric
@@ -354,15 +361,29 @@ def run_groups(tcfg: TrackerConfig, state: gn.GNState, iteration):
     for group, (n_iters, _) in enumerate(tcfg.iter_config):
         i = 0
         while True:
-            iteration(group)
+            with trace.span("tracker.eval"):
+                iteration(group)
             evals += 1
             i += 1
             if i > n_iters:
                 break
             reads += 1
-            if bool(state.done):
+            with trace.span("tracker.done_read"):
+                done = bool(state.done)
+            if done:
                 break
+        trace.count(_gn_evals_name(group), i)
     return evals, reads
+
+
+_GN_EVALS = []
+
+
+def _gn_evals_name(group: int) -> str:
+    """The counter of group ``group``'s evaluations, made once."""
+    while len(_GN_EVALS) <= group:
+        _GN_EVALS.append(f"tracker.gn_evals.g{len(_GN_EVALS)}")
+    return _GN_EVALS[group]
 
 
 def divergence_update(iters, rgb_weight, n_unstable):
@@ -465,10 +486,12 @@ class _FrameStep:
         return self.tracker._tracked_epilogue(self.pre)
 
     def _eager(self):
-        pre = self.prelude()
+        with trace.span("tracker.prelude"):
+            pre = self.prelude()
         evals, reads = run_groups(self.tracker.tcfg, self.tracker.gn, self.iteration)
         self.tracker.host_reads += reads
-        return self.epilogue(), pre
+        with trace.span("tracker.epilogue"):
+            return self.epilogue(), pre
 
     def run(self):
         """Track the frame in the input buffers: (out (13,) = [pose_R (9),
@@ -493,12 +516,15 @@ class _FrameStep:
                 "epilogue": _Graph(self.epilogue)}
             return out, pre
         graphs = self.graphs
-        graphs["prelude"].replay()
+        with trace.span("tracker.prelude"):
+            graphs["prelude"].replay()
         evals, reads = run_groups(t.tcfg, t.gn, lambda g: graphs["iteration"][g].replay())
-        graphs["epilogue"].replay()
+        with trace.span("tracker.epilogue"):
+            graphs["epilogue"].replay()
+            out = graphs["epilogue"].out.clone()
         t.graph_replays += evals + 2
         t.host_reads += reads
-        return graphs["epilogue"].out.clone(), self.pre
+        return out, self.pre
 
 
 class SDFTracker:
@@ -618,11 +644,13 @@ class SDFTracker:
         """Returns the device pose (R (3, 3), t (3,))."""
         self._spill_pose_log(1)
         if set_pose is not None:
-            pre = self.preprocess(rgb, depth, calib, depth_cut)
-            out = self._finish(
-                pre, torch.as_tensor(set_pose.q.rotation_matrix, dtype=torch.float32,
-                                     device=self.device),
-                torch.as_tensor(set_pose.t, dtype=torch.float32, device=self.device))
+            with trace.span("frontend.preprocess"):
+                pre = self.preprocess(rgb, depth, calib, depth_cut)
+            with trace.span("tracker.finish"):
+                out = self._finish(
+                    pre, torch.as_tensor(set_pose.q.rotation_matrix, dtype=torch.float32,
+                                         device=self.device),
+                    torch.as_tensor(set_pose.t, dtype=torch.float32, device=self.device))
         else:
             if self.n_tracked == 0:
                 raise RuntimeError("first frame needs set_pose (first_iso)")

@@ -6,6 +6,10 @@ The port runs both on one card, and a job holds ``launches.EXCLUSIVE`` for
 its whole length (no graph capture may diff the launch counters while a
 worker launches), so two workers could never run at once: one worker
 takes both kinds of job, in the order they were submitted.
+
+Each job is a ``worker.job`` span (``utils/trace.py``) on the worker's
+thread, from its start to the end of its stream's work (for a mesh job,
+the mesh is complete then), whose parent is the span that submitted it.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 import torch
 
 from ..ops import launches
+from ..utils import trace
 
 
 class Worker:
@@ -36,8 +41,11 @@ class Worker:
             ready = torch.cuda.Event()
             ready.record()
 
+        cause = trace.current()
+
         def job():
-            with launches.EXCLUSIVE:
+            with trace.span("worker.job", parent=cause,
+                            attrs={"job": getattr(fn, "__qualname__", "")}), launches.EXCLUSIVE:
                 if self.stream is None:
                     return fn(*args, **kwargs)
                 with torch.cuda.stream(self.stream):

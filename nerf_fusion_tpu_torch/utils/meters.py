@@ -1,8 +1,8 @@
-"""Loss/timing aggregation meters (capability parity with utils/exp_util.py:115-256)."""
+"""Loss aggregation meters (capability parity with utils/exp_util.py:115-256); the
+fusion loop's timing is its spans (``utils/trace.py``)."""
 
 from __future__ import annotations
 
-import time
 from collections import OrderedDict
 
 import numpy as np
@@ -55,48 +55,3 @@ class RunningAverageMeter:
 
     def get_loss_dict(self):
         return dict(self.loss_dict)
-
-
-class StageTimer:
-    """Per-stage wall-clock timer for the fusion loop (track/integrate/mesh).
-
-    The reference has no per-stage instrumentation (SURVEY.md §5.1); the
-    ≥10fps target requires it, so it's first-class here.
-    """
-
-    def __init__(self):
-        self.totals = OrderedDict()
-        self.counts = OrderedDict()
-        self.maxes = OrderedDict()
-        self._start = {}
-
-    def start(self, stage: str):
-        self._start[stage] = time.perf_counter()
-
-    def stop(self, stage: str):
-        dt = time.perf_counter() - self._start.pop(stage)
-        self.totals[stage] = self.totals.get(stage, 0.0) + dt
-        self.counts[stage] = self.counts.get(stage, 0) + 1
-        self.maxes[stage] = max(self.maxes.get(stage, 0.0), dt)
-        return dt
-
-    class _Scope:
-        def __init__(self, timer, stage):
-            self.timer, self.stage = timer, stage
-
-        def __enter__(self):
-            self.timer.start(self.stage)
-
-        def __exit__(self, *exc):
-            self.timer.stop(self.stage)
-
-    def scope(self, stage: str):
-        return self._Scope(self, stage)
-
-    def summary(self) -> dict:
-        return {
-            stage: {"total_s": self.totals[stage], "count": self.counts[stage],
-                    "mean_ms": 1e3 * self.totals[stage] / max(self.counts[stage], 1),
-                    "max_ms": 1e3 * self.maxes.get(stage, 0.0)}
-            for stage in self.totals
-        }
