@@ -28,7 +28,9 @@
    runs it) and at the fast path's 24576-pixel selection.  ``gn_step`` on
    every step of a real frame's GN loops (dense and sparse), replayed on
    copies of the recorded state: the new pose within 1e-5 of its largest
-   entry, the decisions equal.
+   entry, the decisions equal.  The SDF term's ``sdf_rows`` bitwise and
+   ``sdf_hg`` (count exactly, H, g, energy within 1e-5) at the GN budget of
+   8192 rows on a map of the room.
    ``decoder_vjp`` at the refinement's 327680 rows: dx within 1e-3 of each
    row's largest entry on 99.9 % of the rows, its library call the same VJP
    by autograd over ``decoder_forward_plain``; its line gives ptxas's
@@ -154,7 +156,10 @@
    voxels allocated and triangles; its launch counters must equal this
    repo's kernels in the trace, and each GN group's evaluation through its
    captured graph must give H, g and energy bitwise equal to the same
-   functions run eagerly.  Two checks besides: ``preprocess_frame`` on a raw
+   functions run eagerly; each evaluation graph must hold the port's
+   kernels alone (``tracker.graph_nodes.g<k>``: 2 for an rgb-only group, 5
+   for an SDF-plus-rgb one), and ``sdf_rows`` = ``sdf_hg`` =
+   ``decoder_forward_grad`` launches.  Two checks besides: ``preprocess_frame`` on a raw
    lr-kt frame bitwise equal to the frame converted on the host, and the
    first 41 frames of (g) with the frames uploaded ahead bitwise equal to
    a run without a prefetcher (both under PyTorch's deterministic
@@ -249,6 +254,12 @@ ENCODER_MACS = 6 * 32 + 32 * 64 + 64 * 256 + 256 * 29
 # pixel (the Jacobian, the weight, 21 + 6 + 1 multiply-adds of the sums).
 PHOTO_OPS_PIXEL = 24
 PHOTO_OPS_VALID = 96
+# The SDF term around the decoder per row: sdf_rows' two point transforms,
+# the voxel lookup and the gate (about 60 operations); sdf_hg's residual,
+# Jacobian, weight and 21 + 6 + 1 + 1 sums (about 120).
+SDF_ROWS_OPS = 60
+SDF_HG_OPS = 120
+TOL_SDF_HG = 1e-5       # sdf_hg's H, g, energy: of each output's largest |entry|
 TOL_MLP = 1e-4          # decoder / encoder outputs: f32, summation order only
 TOL_HG = 1e-4           # photometric H, g, energy: of each output's largest |entry|
 TOL_GRAD = 1e-3         # decoder input gradient
@@ -567,10 +578,11 @@ def photometric_phase(dev, seq):
     cases = {}
     # dense at the config's stride, the fast path's selection, and dense at
     # stride 1, every pixel of level 0 (configs/fusion-lr-kt.yaml)
+    # as the tracker calls it: the kernel forms K dR K^-1 and K dt
     for name, level, st in (("dense", cur, stride), ("sparse", sel, stride),
                             ("dense_stride1", cur, 1)):
-        kws = dict(kw, stride=st)
-        args = (rows, level, krkinv, kt, c.fx, c.fy, c.cx, c.cy)
+        kws = dict(kw, stride=st, K=(K, Kinv))
+        args = (rows, level, dR, dt, c.fx, c.fy, c.cx, c.cy)
         out = photometric.photometric_hg(*args, **kws)
         again = photometric.photometric_hg(*args, **kws)
         ref = photometric.photometric_hg_plain(*args, **kws)
@@ -616,6 +628,28 @@ def photometric_phase(dev, seq):
                for k, v in cases.items()])]
 
 
+def room_pair(dev, seq, model):
+    """Frame 10 integrated into a fresh map at its ground-truth pose and
+    frame 11 preprocessed: (map, tracker, pre0, pre1, R0, t0, calib)."""
+    import torch
+
+    from nerf_fusion_tpu_torch.system import tracker as T
+    from nerf_fusion_tpu_torch.system.map import SparseVoxelMap
+    from nerf_fusion_tpu_torch.utils.config import dict_to_args, parse_config_yaml
+
+    args = parse_config_yaml(REPO / CONFIG)
+    f0, f1 = seq.render_frame(10), seq.render_frame(11)
+    c = f0.calib
+    vmap = SparseVoxelMap(model, dict_to_args(args.mapping), 29, dev)
+    tracker = T.SDFTracker(vmap, args.tracking, point_budget=40960)
+    pre0 = tracker.preprocess(f0.rgb, f0.depth, c)
+    pre1 = tracker.preprocess(f1.rgb, f1.depth, c)
+    R0 = torch.as_tensor(f0.gt_pose.q.rotation_matrix, dtype=torch.float32, device=dev)
+    t0 = torch.as_tensor(f0.gt_pose.t, dtype=torch.float32, device=dev)
+    vmap.integrate_keyframe(pre0.points, pre0.normals, pre0.mask, pose=(R0, t0))
+    return vmap, tracker, pre0, pre1, R0, t0, c
+
+
 def gn_phase(dev, seq, model):
     """The GN step kernel against its plain version on the (H, g, energy,
     state) sequences of real frames: frame 10 integrated into a fresh map
@@ -628,20 +662,9 @@ def gn_phase(dev, seq, model):
 
     from nerf_fusion_tpu_torch.ops import gn
     from nerf_fusion_tpu_torch.system import tracker as T
-    from nerf_fusion_tpu_torch.system.map import SparseVoxelMap
-    from nerf_fusion_tpu_torch.utils.config import dict_to_args, parse_config_yaml
     from nerf_fusion_tpu_torch.utils.timing import call_ms, device_ms
 
-    args = parse_config_yaml(REPO / CONFIG)
-    f0, f1 = seq.render_frame(10), seq.render_frame(11)
-    c = f0.calib
-    vmap = SparseVoxelMap(model, dict_to_args(args.mapping), 29, dev)
-    tracker = T.SDFTracker(vmap, args.tracking, point_budget=40960)
-    pre0 = tracker.preprocess(f0.rgb, f0.depth, c)
-    pre1 = tracker.preprocess(f1.rgb, f1.depth, c)
-    R0 = torch.as_tensor(f0.gt_pose.q.rotation_matrix, dtype=torch.float32, device=dev)
-    t0 = torch.as_tensor(f0.gt_pose.t, dtype=torch.float32, device=dev)
-    vmap.integrate_keyframe(pre0.points, pre0.normals, pre0.mask, pose=(R0, t0))
+    vmap, tracker, pre0, pre1, R0, t0, c = room_pair(dev, seq, model)
     steps = []
 
     def record(H, g, energy, state, group, n_iters):
@@ -684,6 +707,82 @@ def gn_phase(dev, seq, model):
         call_ms=call_ms(lambda: gn.gn_step(H, g, energy, work, group, n_iters), 100),
         plain_ms=device_ms(lambda: gn.gn_step_plain(H, g, energy, work, group, n_iters), 20),
         bound=bound_ms(600.0, 280 + 113), library_ms=None, recorded_steps=len(steps))]
+
+
+def sdf_phase(dev, seq, model):
+    """The SDF term's two kernels against their plain versions at the GN
+    budget of 8192 rows: frame 10 integrated into a fresh map at its
+    ground-truth pose, frame 11's points at the true delta pose.
+    ``sdf_rows`` bitwise (the decoder input, p_delta, the used rows),
+    ``sdf_hg``'s count exactly and H, g, energy within TOL_SDF_HG of each
+    output's largest entry, two calls of each bitwise."""
+    import torch
+
+    from nerf_fusion_tpu_torch.ops import mlp, sdf_term
+    from nerf_fusion_tpu_torch.utils.config import parse_config_yaml
+    from nerf_fusion_tpu_torch.utils.timing import call_ms, device_ms
+
+    sdf = parse_config_yaml(REPO / CONFIG).tracking["sdf"]
+    kernel, k = sdf["robust_kernel"], float(sdf["robust_k"])
+    vmap, _, _, pre1, R0, t0, _ = room_pair(dev, seq, model)
+    f0, f1 = seq.render_frame(10), seq.render_frame(11)
+    rel = f0.gt_pose.inv().dot(f1.gt_pose).matrix
+    dR = torch.as_tensor(rel[:3, :3], dtype=torch.float32, device=dev).contiguous()
+    dt = torch.as_tensor(rel[:3, 3], dtype=torch.float32, device=dev).contiguous()
+    cfg, st_, n = vmap.cfg, vmap.state, 8192
+    rargs = (pre1.points[:n], pre1.mask[:n], dR, dt, R0.contiguous(), t0, vmap.bound_min,
+             cfg.voxel_size, cfg.n_xyz, st_.indexer, st_.obs_count, st_.latents,
+             cfg.ignore_count_th)
+    rows = sdf_term.sdf_rows(*rargs)
+    again = sdf_term.sdf_rows(*rargs)
+    plain = sdf_term.sdf_rows_plain(*rargs)
+    dec = model.decoder
+    out, grad = mlp.decoder_forward_grad(rows[0], dec.packed, dec.mats)
+    hargs = (out, grad, rows[1], rows[2], R0.contiguous(), cfg.voxel_size, kernel, k)
+    res = sdf_term.sdf_hg(*hargs)
+    res_again = sdf_term.sdf_hg(*hargs)
+    ref = sdf_term.sdf_hg_plain(*hargs)
+    torch.cuda.synchronize()
+    rows_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(rows, plain))
+    rows_diff = [int((a != b).reshape(n, -1).any(1).sum()) for a, b in zip(rows, plain)]
+    hg_err = max(float((res[lo:hi] - ref[lo:hi]).abs().max())
+                 / max(float(ref[lo:hi].abs().max()), 1e-30)
+                 for lo, hi in ((0, 36), (36, 42), (42, 43)))
+    used = int(rows[2].sum())
+    print(f"sdf_rows: rows differing from the plain version (x, p_delta, use) {rows_diff}, "
+          f"{used} of {n} rows used; sdf_hg: max rel err {hg_err:.3e}, count "
+          f"{float(res[43])} / {float(ref[43])}", flush=True)
+    if any(rows_diff):
+        fail(f"sdf_rows differs from its plain version on rows {rows_diff}")
+    if float(res[43]) != float(ref[43]) or used <= 0:
+        fail(f"sdf_hg: count {float(res[43])} against the plain version's {float(ref[43])}")
+    if not (all(torch.equal(a, b) for a, b in zip(rows, again))
+            and torch.equal(res, res_again)):
+        fail("sdf_rows or sdf_hg: two calls on the same inputs differ")
+    # sdf_rows: 12 + 1 bytes a point in, the indexer entry, the slot's count
+    # and latent read (4 + 4 + 116), the decoder row, p_delta and use out
+    # (128 + 12 + 1); sdf_hg: out, grad, p_delta and use in (8 + 12 + 12 + 1)
+    return [dict(
+        name="sdf_rows", err=rows_err, tol=0.0, source="nerf_fusion_tpu_torch/csrc/sdf_term.cu",
+        replaces="none (no Pallas source): nerf_fusion_tpu/system/tracker.py _sdf_Hg's point "
+                 "transforms and nerf_fusion_tpu/system/map.py get_sdf's lookup, gate and "
+                 "decoder input",
+        shape=f"({n}, 3) points -> ({n}, 32) + ({n}, 3) + ({n},)",
+        ms=device_ms(lambda: sdf_term.sdf_rows(*rargs), 100),
+        call_ms=call_ms(lambda: sdf_term.sdf_rows(*rargs), 100),
+        plain_ms=device_ms(lambda: sdf_term.sdf_rows_plain(*rargs), 20),
+        bound=bound_ms(n * SDF_ROWS_OPS, n * (13 + 124 + 141)), library_ms=None,
+        rows_used=used), dict(
+        name="sdf_hg", err=hg_err, tol=TOL_SDF_HG,
+        source="nerf_fusion_tpu_torch/csrc/sdf_term.cu",
+        replaces="none (no Pallas source): nerf_fusion_tpu/system/tracker.py _sdf_Hg's "
+                 "residual, Jacobian, robust weight and reductions",
+        shape=f"({n}, 2) + ({n}, 3) + ({n}, 3) + ({n},) -> (44,)",
+        ms=device_ms(lambda: sdf_term.sdf_hg(*hargs), 100),
+        call_ms=call_ms(lambda: sdf_term.sdf_hg(*hargs), 100),
+        plain_ms=device_ms(lambda: sdf_term.sdf_hg_plain(*hargs), 20),
+        bound=bound_ms(n * SDF_HG_OPS, n * 33 + 44 * 4), library_ms=None,
+        count_err=abs(float(res[43]) - float(ref[43])))]
 
 
 def decoder_vjp_row(dev, dec) -> dict:
@@ -919,6 +1018,7 @@ def kernel_phase(dev):
     rows += gather_phase(dev, seq.render_frame(1))
     rows += photometric_phase(dev, seq)
     rows += gn_phase(dev, seq, model)
+    rows += sdf_phase(dev, seq, model)
     rows.append(decoder_vjp_row(dev, dec))
     # the stencil rows once more, after the photometric phase, event by event
     for r in rows:
@@ -977,7 +1077,7 @@ def kernel_phase(dev):
 KERNEL_ROWS = ("decoder_forward", "decoder_forward_grad", "encoder_forward",
                "stencil_count", "stencil_normals", "stencil_frontend", "row_gather",
                "row_gather_c1", "lane_gather", "photometric_hg", "select_gather", "gn_step",
-               "decoder_vjp")
+               "decoder_vjp", "sdf_rows", "sdf_hg")
 
 
 def card() -> str:
@@ -1269,6 +1369,22 @@ def fusion_path(dev, label: str, exec_: str = None, config: str = CONFIG,
         fail(f"{label}: empty mesh")
     if tr.graph_replays <= 0 or tr.host_reads > tr.graph_replays:
         fail(f"{label}: {tr.graph_replays} graph replays, {tr.host_reads} host reads")
+    # each evaluation graph holds the port's kernels alone: three for the SDF
+    # term, one a photometric level, and gn_step; under deterministic
+    # algorithms PyTorch also fills each buffer the capture allocates (one
+    # kernel a buffer), so there the port's launches are a part of the nodes
+    graphs = tr._step.graphs["iteration"]
+    nodes = [g.nodes for g in graphs]
+    ours = [sum(g.launches.values()) for g in graphs]
+    want = [sum(3 if t[0] == "sdf" else 1 for t in terms) + 1
+            for _, terms in tr.tcfg.iter_config]
+    counted = {k: v for k, v in res["counters"].items() if k.startswith("tracker.graph_nodes")}
+    print(f"{label} path: evaluation graphs' kernel nodes {nodes}, the port's launches "
+          f"{ours} (stats.json {counted})", flush=True)
+    filled = torch.are_deterministic_algorithms_enabled()
+    if ours != want or (any(n < o for n, o in zip(nodes, ours)) if filled else nodes != ours):
+        fail(f"{label}: evaluation graphs hold {nodes} kernel nodes and {ours} launches of "
+             f"the port, {want} expected: {[g.launches for g in graphs]}")
     # one evaluation of each group through its graph and eagerly, bitwise
     for group in range(len(tr.tcfg.iter_config)):
         got, ref = graph_vs_eager(tr, group)
@@ -2331,7 +2447,7 @@ def probe_path(label: str, probe):
 
 def check_launches(paths: dict):
     fusion = ("decoder_forward", "decoder_forward_grad", "encoder_forward",
-              "stencil_frontend", "photometric_hg", "gn_step")
+              "stencil_frontend", "photometric_hg", "gn_step", "sdf_rows", "sdf_hg")
     required = {
         "dense": fusion, "dense_det": fusion, "lrkt": fusion, "mesh_fast": fusion,
         "refine": fusion + ("decoder_vjp",), "async": fusion + ("decoder_vjp",),
@@ -2355,6 +2471,14 @@ def check_launches(paths: dict):
                   "async", "hash_box", "lrkt", "lrkt_fast", "scannet_scale"):
         if any(paths[label]["row_gather_by_width"].values()):
             fail(f"row_gather ran on the {label} path: {paths[label]['row_gather_by_width']}")
+    # on a fusion path the SDF term alone decodes with the gradient: each of
+    # its evaluations launches sdf_rows, decoder_forward_grad and sdf_hg once
+    for label in ("dense", "fast", "dense_det", "fpc19", "vis", "refine", "mesh_fast",
+                  "async", "hash_box", "lrkt", "lrkt_fast", "scannet_scale"):
+        p = paths[label]
+        if not p["sdf_rows"] == p["sdf_hg"] == p["decoder_forward_grad"]:
+            fail(f"{label}: sdf_rows {p['sdf_rows']}, sdf_hg {p['sdf_hg']}, "
+                 f"decoder_forward_grad {p['decoder_forward_grad']} launches differ")
     for c in (1, 2, 4):
         if paths["probe"]["row_gather_by_width"][c] <= 0:
             fail(f"row_gather at width {c} was not launched on the probe path")
@@ -2453,6 +2577,7 @@ def main() -> int:
                                  "normal_agree_frac", "mask_diff", "pts_equal",
                                  "off_mask_zero", "repeat_equal", "ms_again",
                                  "selection_matches_cpu", "recorded_steps", "cases",
+                                 "rows_used",
                                  "edge_cases", "registers", "spill_stores", "spill_loads")
                if k in r}})
     if sorted(k["name"] for k in kernels) != sorted(KERNEL_ROWS):

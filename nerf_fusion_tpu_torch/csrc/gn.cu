@@ -8,6 +8,12 @@
 // non-finite guard, se3_exp with its left Jacobian, compose), so that a GN
 // evaluation and its step can be captured in one CUDA graph.
 //
+// The step reads the normal equations of the group's terms as they are,
+// one (H, g, energy) a term by pointer (at most kMaxTerms), and sums them in
+// the tracker's order (build_Hg: zeros, then each term added), so that no
+// PyTorch kernel runs between a term's kernel and the step; it writes the
+// sums out (the evaluation's H, g, energy).
+//
 // One step, in the order of the JAX body:
 //   worse = energy > best | !isfinite(energy)
 //   (bR, bt, best) := worse ? (bR, bt, best) : (dR, dt, energy)
@@ -22,9 +28,10 @@
 // or i + 1 > n_iters) the kernel also resets i, used and best for the next
 // group, whose start pose is then the best pose (dR = bR).
 //
-// What bounds it: nothing on the card.  It moves 393 bytes (280 in: H, g,
-// energy, pose, the two counters; 113 out: pose, counters, done, one iters
-// entry) and does a few hundred flops; its time is the launch.  So it is one
+// What bounds it: nothing on the card.  It moves 393 bytes with one term
+// (280 in: H, g, energy, pose, the two counters; 113 out: pose, counters,
+// done, one iters entry), 172 more a term (H, g, energy in; their sums out
+// once), and does a few hundred flops; its time is the launch.  So it is one
 // thread of one block, written for clarity, with IEEE sinf / cosf / divisions
 // (no fast math).
 
@@ -40,6 +47,15 @@ constexpr int kDT = 9;
 constexpr int kBR = 12;
 constexpr int kBT = 21;
 constexpr int kBest = 24;
+constexpr int kMaxTerms = 8;
+
+// the group's terms: (H (6, 6), g (6,), energy ()) of each, in order
+struct Terms {
+  const float* H[kMaxTerms];
+  const float* g[kMaxTerms];
+  const float* e[kMaxTerms];
+  int n;
+};
 
 // xi = (H + 1e-9 I)^-1 (-g): LU with partial pivoting on the augmented
 // matrix, the first row of largest |pivot| taken, then back substitution.
@@ -105,10 +121,21 @@ __device__ void se3_exp(const float* xi, float* R, float* t) {
     t[r] = J[r * 3] * xi[0] + J[r * 3 + 1] * xi[1] + J[r * 3 + 2] * xi[2];
 }
 
-__global__ void gn_step_kernel(const float* __restrict__ H, const float* __restrict__ g,
-                               const float* __restrict__ energy, float* st, int* ist,
+__global__ void gn_step_kernel(const Terms terms, float* sum, float* st, int* ist,
                                uint8_t* done, int* iters, int group, int n_iters) {
-  const float e = *energy;
+  float H[36], g[6], e = 0.f;
+  for (int k = 0; k < 36; ++k) H[k] = 0.f;
+  for (int k = 0; k < 6; ++k) g[k] = 0.f;
+  for (int t = 0; t < terms.n; ++t) {  // a term's 43 loads issued together
+#pragma unroll
+    for (int k = 0; k < 36; ++k) H[k] = __fadd_rn(H[k], __ldcg(terms.H[t] + k));
+#pragma unroll
+    for (int k = 0; k < 6; ++k) g[k] = __fadd_rn(g[k], __ldcg(terms.g[t] + k));
+    e = __fadd_rn(e, __ldcg(terms.e[t]));
+  }
+  for (int k = 0; k < 36; ++k) sum[k] = H[k];
+  for (int k = 0; k < 6; ++k) sum[36 + k] = g[k];
+  sum[42] = e;
   const float best = st[kBest];
   const int i = ist[0], used = ist[1];
   const bool worse = e > best || !isfinite(e);
@@ -158,14 +185,24 @@ __global__ void gn_step_kernel(const float* __restrict__ H, const float* __restr
 
 extern "C" {
 
-// H (6, 6), g (6,), energy () f32 of this evaluation; state (25,) f32,
+// parts: 3 n_parts device pointers (a host array), [H (6, 6), g (6,),
+// energy ()] f32 of each term of this evaluation in order, 1 <= n_parts <=
+// kMaxTerms -> sum (43,) f32 = [H, g, energy], their sums; state (25,) f32,
 // istate (2,) i32 = [i, used], done (1,) u8 and iters (G,) i32 are updated
 // in place; group indexes iters, n_iters is the group's step count.
-int gn_step(const float* H, const float* g, const float* energy, float* state,
-            int* istate, uint8_t* done, int* iters, int group, int n_iters, void* stream) {
-  if (group < 0 || n_iters < 0) return static_cast<int>(cudaErrorInvalidValue);
+int gn_step(const float* const* parts, int n_parts, float* sum, float* state, int* istate,
+            uint8_t* done, int* iters, int group, int n_iters, void* stream) {
+  if (group < 0 || n_iters < 0 || n_parts < 1 || n_parts > kMaxTerms)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Terms terms = {};
+  for (int t = 0; t < n_parts; ++t) {
+    terms.H[t] = parts[3 * t];
+    terms.g[t] = parts[3 * t + 1];
+    terms.e[t] = parts[3 * t + 2];
+  }
+  terms.n = n_parts;
   gn_step_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      H, g, energy, state, istate, done, iters, group, n_iters);
+      terms, sum, state, istate, done, iters, group, n_iters);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,7 +10,9 @@
 // One launch per evaluation does the warp, the gather from the packed
 // previous frame, the validity tests, the residual, the Jacobian, the robust
 // weight and the reduction to H (6 x 6), g (6), the energy and the valid
-// count, where the plain version takes about 120 PyTorch kernels.
+// count, where the plain version takes about 120 PyTorch kernels, and forms
+// the warp's K R K^-1 and K t itself (three products the tracker launched
+// before it).
 //
 // What bounds it on an H100: neither bytes nor operations.  At 640x480,
 // stride 2, it reads 1.2 MB of the current planes and at most the 2.4 MB
@@ -25,12 +27,16 @@
 // (imgproc.py rgb_odometry / rgb_odometry_sparse): __fmul_rn / __fadd_rn /
 // __fdiv_rn keep nvcc from contracting a*b+c into an FMA, rintf rounds half
 // to even as torch.round does, and the thresholds arrive rounded to f32 as
-// PyTorch rounds a Python scalar.  K R K^-1 and K t are read from the device
-// tensors the plain version uses, never recomputed.  A pixel whose rounded
-// warp falls outside the image is invalid; inside it, the plain version's
-// NaN-to-0 and clamp leave the warp as it is, so the kernel gathers only
-// in-bounds pixels and uses the warp unclamped.  The Jacobian, the weights
-// and the sums may contract.
+// PyTorch rounds a Python scalar.  Each thread forms K R K^-1 and K t from
+// the pose (R, t) and the level's K and K^-1, all read by pointer (R, t the
+// GN state's delta pose, so a captured graph reads the pose that gn_step
+// wrote), as the plain version's cuBLAS products round them: for each entry
+// an FMA chain in k order, K R first.  Given K R K^-1 and K t themselves,
+// the wrapper passes K = K^-1 = I, for which the chains are exact.  A pixel
+// whose rounded warp falls outside the image is invalid; inside it, the
+// plain version's NaN-to-0 and clamp leave the warp as it is, so the kernel
+// gathers only in-bounds pixels and uses the warp unclamped.  The Jacobian,
+// the weights and the sums may contract.
 //
 // Reduction, deterministic in one launch: each thread sums the 21 upper
 // entries of H, the 6 of g, the energy and the count over its pixels
@@ -65,8 +71,10 @@ struct Args {
   const float* v;          // sparse only
   const uint8_t* valid;    // sparse only
   int n, gw, stride;
-  const float* krkinv;     // (3, 3) K R K^-1
-  const float* kt;         // (3,) K t
+  const float* R;          // (3, 3) the relative pose's rotation
+  const float* t;          // (3,) and translation
+  const float* K;          // (3, 3) the level's intrinsics
+  const float* Kinv;       // (3, 3) their inverse
   float fx, fy, cx, cy, min_grad, max_dd, robust_k;
   const float* rgb_weight;  // () f32 on the device: the tracker's state machine sets it
   int robust;              // 0 none, 1 huber, 2 tukey
@@ -93,15 +101,36 @@ __device__ __forceinline__ float warp_row(float d1, float k0, float k1, float k2
   return __fadd_rn(__fmul_rn(d1, s), c);
 }
 
+// C = A B, A (3, 3), B (3, cols) row-major (cols 1: a vector): cuBLAS's f32
+// product, an FMA chain over k in order for each entry.
+__device__ __forceinline__ void product3(const float* A, const float* B, int cols, float* C) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int c = 0; c < cols; ++c) {
+      float acc = __fmul_rn(A[r * 3], B[c]);
+      acc = __fmaf_rn(A[r * 3 + 1], B[cols + c], acc);
+      C[r * cols + c] = __fmaf_rn(A[r * 3 + 2], B[2 * cols + c], acc);
+    }
+  }
+}
+
 template <bool SPARSE>
 __global__ void __launch_bounds__(kThreads) photometric_kernel(const Args a) {
   __shared__ float red[kWarps][kPad];
   __shared__ bool last;
-  float k[9], kt[3];
+  float K[9], Kinv[9], R[9], t[3], KR[9], k[9], kt[3];
 #pragma unroll
-  for (int i = 0; i < 9; ++i) k[i] = __ldg(a.krkinv + i);
+  for (int i = 0; i < 9; ++i) {
+    K[i] = __ldg(a.K + i);
+    Kinv[i] = __ldg(a.Kinv + i);
+    R[i] = __ldg(a.R + i);
+  }
 #pragma unroll
-  for (int i = 0; i < 3; ++i) kt[i] = __ldg(a.kt + i);
+  for (int i = 0; i < 3; ++i) t[i] = __ldg(a.t + i);
+  product3(K, R, 3, KR);
+  product3(KR, Kinv, 3, k);   // K R K^-1
+  product3(K, t, 1, kt);      // K t
 
   float acc[kSlots];
 #pragma unroll
@@ -252,16 +281,18 @@ int launch(Args& a, int max_blocks, void* stream, bool sparse) {
   return static_cast<int>(cudaGetLastError());
 }
 
-Args common(const float* prev, int W, int H, const float* krkinv, const float* kt,
-            float fx, float fy, float cx, float cy, float max_dd, int robust,
+Args common(const float* prev, int W, int H, const float* R, const float* t,
+            const float* K, const float* Kinv, float fx, float fy, float cx, float cy, float max_dd, int robust,
             float robust_k, const float* rgb_weight, float* partials, unsigned int* ticket,
             float* out) {
   Args a = {};
   a.prev = reinterpret_cast<const float2*>(prev);
   a.W = W;
   a.H = H;
-  a.krkinv = krkinv;
-  a.kt = kt;
+  a.R = R;
+  a.t = t;
+  a.K = K;
+  a.Kinv = Kinv;
   a.fx = fx;
   a.fy = fy;
   a.cx = cx;
@@ -282,18 +313,20 @@ extern "C" {
 
 // prev (H*W, 2) f32 (8-byte aligned); intensity, depth (H, W) and grad
 // (2, H, W) f32 of the current level, evaluated at every stride-th pixel;
-// krkinv (3, 3), kt (3,) f32; partials (max_blocks, 32) f32 and ticket (a
+// R (3, 3), t (3,) the relative pose and K, Kinv (3, 3) the level's
+// intrinsics f32 (the warp's K R K^-1 and K t); partials (max_blocks, 32) f32 and ticket (a
 // zero uint32) are the wrapper's workspace -> out (44,) = [H (6, 6), g (6),
 // energy, count].
 int photometric_hg_dense(const float* prev, int W, int H, const float* intensity,
                          const float* depth, const float* grad, int stride,
-                         const float* krkinv, const float* kt, float fx, float fy,
+                         const float* R, const float* t, const float* K,
+                         const float* Kinv, float fx, float fy,
                          float cx, float cy, float min_grad, float max_dd, int robust,
                          float robust_k, const float* rgb_weight, float* partials,
                          int max_blocks, unsigned int* ticket, float* out,
                          void* stream) {
   if (W <= 0 || H <= 0 || stride < 1) return static_cast<int>(cudaErrorInvalidValue);
-  Args a = common(prev, W, H, krkinv, kt, fx, fy, cx, cy, max_dd, robust, robust_k,
+  Args a = common(prev, W, H, R, t, K, Kinv, fx, fy, cx, cy, max_dd, robust, robust_k,
                   rgb_weight, partials, ticket, out);
   a.inten = intensity;
   a.depth = depth;
@@ -311,12 +344,13 @@ int photometric_hg_dense(const float* prev, int W, int H, const float* intensity
 int photometric_hg_sparse(const float* prev, int W, int H, const float* u,
                           const float* v, const float* i1, const float* d1,
                           const float* gx, const float* gy, const uint8_t* valid, int n,
-                          const float* krkinv, const float* kt, float fx, float fy,
+                          const float* R, const float* t, const float* K,
+                          const float* Kinv, float fx, float fy,
                           float cx, float cy, float max_dd, int robust, float robust_k,
                           const float* rgb_weight, float* partials, int max_blocks,
                           unsigned int* ticket, float* out, void* stream) {
   if (W <= 0 || H <= 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
-  Args a = common(prev, W, H, krkinv, kt, fx, fy, cx, cy, max_dd, robust, robust_k,
+  Args a = common(prev, W, H, R, t, K, Kinv, fx, fy, cx, cy, max_dd, robust, robust_k,
                   rgb_weight, partials, ticket, out);
   a.u = u;
   a.v = v;

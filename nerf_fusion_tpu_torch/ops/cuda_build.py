@@ -24,7 +24,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 # gather_floor: the gather probe's instruments (tools/gather_probe.py)
-SOURCES = ("mlp", "stencil", "gather", "photometric", "gn", "gather_floor")
+SOURCES = ("mlp", "stencil", "gather", "photometric", "gn", "sdf_term", "gather_floor")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -55,13 +55,18 @@ SIGNATURES = {
         "clean_flush": (_P, ctypes.c_longlong, _P, _P),
     },
     "photometric": {
-        "photometric_hg_dense": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _F, _F, _F, _F,
-                                 _F, _F, _I, _F, _P, _P, _I, _P, _P, _P),
-        "photometric_hg_sparse": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
-                                  _F, _F, _F, _F, _F, _I, _F, _P, _P, _I, _P, _P, _P),
+        "photometric_hg_dense": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _F, _F, _F,
+                                 _F, _F, _F, _I, _F, _P, _P, _I, _P, _P, _P),
+        "photometric_hg_sparse": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                                  _P, _F, _F, _F, _F, _F, _I, _F, _P, _P, _I, _P, _P, _P),
     },
     "gn": {
-        "gn_step": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+        "gn_step": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _P),
+    },
+    "sdf_term": {
+        "sdf_rows": (_P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _P, _P, _P, _I, _I, _F,
+                     _I, _P, _P, _P, _P),
+        "sdf_hg": (_P, _P, _P, _P, _P, _F, _I, _F, _F, _I, _P, _I, _P, _P, _P),
     },
 }
 
@@ -170,6 +175,31 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_LIBCUDA: list = []
+_KERNEL_NODE = 0        # CU_GRAPH_NODE_TYPE_KERNEL
+
+
+def graph_kernel_nodes(raw_graph: int) -> int:
+    """The kernel nodes of a CUDA graph (``torch.cuda.CUDAGraph(keep_graph=
+    True).raw_cuda_graph()`` after its capture), read with libcuda's
+    ``cuGraphGetNodes`` and ``cuGraphNodeGetType``."""
+    if not _LIBCUDA:
+        _LIBCUDA.append(ctypes.CDLL("libcuda.so.1"))
+    lib = _LIBCUDA[0]
+    graph, n = ctypes.c_void_p(raw_graph), ctypes.c_size_t(0)
+    if lib.cuGraphGetNodes(graph, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and lib.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kind, count = ctypes.c_int(), 0
+    for node in nodes:
+        if lib.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        count += kind.value == _KERNEL_NODE
+    return count
 
 
 _SMS: dict = {}

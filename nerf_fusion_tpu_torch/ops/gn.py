@@ -13,6 +13,12 @@ reads only the one-byte ``done`` flag.  A step that ends its group (worse,
 or the last step) resets ``i``, ``used`` and the best energy for the next
 group and leaves the group's best pose as the delta.
 
+The step takes the normal equations as they are, or the group's terms
+apart: sequences of each term's H, g and energy, which it sums as the
+tracker's ``build_Hg`` does (``sum_terms``), inside the kernel on the card,
+so that no PyTorch kernel runs between the terms' kernels and the step.  It
+returns the sums.
+
 ``gn_step`` launches the kernel of ``csrc/gn.cu`` for CUDA tensors (or
 raises) and takes ``gn_step_plain``, the same step in PyTorch ops, only for
 CPU tensors; it counts its launches in ``gn_step.launches``.  The kernel has
@@ -21,6 +27,7 @@ no Pallas source: the JAX package leaves the loop body to XLA.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -29,6 +36,7 @@ from . import cuda_build
 from ..utils import se3_torch as st
 
 STATE = 25      # dR (9), dt (3), bR (9), bt (3), best energy
+MAX_TERMS = 8   # terms of one group the kernel sums (csrc/gn.cu kMaxTerms)
 
 
 class GNState(NamedTuple):
@@ -69,9 +77,25 @@ def reset(state: GNState, initial: torch.Tensor):
     state.iters.zero_()
 
 
+def sum_terms(H, g, energy):
+    """The normal equations of a group from its terms' sequences of H, g and
+    energy: zeros, then each term added in order."""
+    dev = H[0].device
+    Hs = torch.zeros((6, 6), dtype=torch.float32, device=dev)
+    gs = torch.zeros(6, dtype=torch.float32, device=dev)
+    es = torch.zeros((), dtype=torch.float32, device=dev)
+    for Ht, gt, et in zip(H, g, energy):
+        Hs, gs, es = Hs + Ht, gs + gt, es + et
+    return Hs, gs, es
+
+
 def gn_step_plain(H, g, energy, state: GNState, group: int, n_iters: int):
     """The step in PyTorch ops, in place: the arithmetic of the host loop it
-    replaced (``solve_ex``, the non-finite guard, ``se3_exp``, ``compose``)."""
+    replaced (``solve_ex``, the non-finite guard, ``se3_exp``, ``compose``).
+    H, g, energy: tensors, or the terms' sequences (``sum_terms``).
+    :return: (H, g, energy) summed."""
+    if not torch.is_tensor(H):
+        H, g, energy = sum_terms(H, g, energy)
     pose, ints = state.pose, state.ints
     dR, dt = pose[0:9].view(3, 3), pose[9:12]
     bR, bt, best = pose[12:21].view(3, 3), pose[21:24], pose[24]
@@ -100,6 +124,7 @@ def gn_step_plain(H, g, energy, state: GNState, group: int, n_iters: int):
     ints.copy_(new_ints)
     state.iters[group] = used2
     state.done.copy_(worse.reshape(1))
+    return H, g, energy
 
 
 def _check(what, name, t, dtype, shape):
@@ -109,27 +134,43 @@ def _check(what, name, t, dtype, shape):
 
 
 def gn_step(H, g, energy, state: GNState, group: int, n_iters: int):
-    """One GN step of group ``group`` (of ``n_iters`` steps), in place."""
+    """One GN step of group ``group`` (of ``n_iters`` steps), in place.
+    H (6, 6), g (6,), energy (): tensors, or sequences of 1 to
+    ``MAX_TERMS`` of them, the group's terms in order, which the step sums
+    (``sum_terms``).  :return: (H, g, energy) summed."""
     what = "gn_step"
+    summed = torch.is_tensor(H)
+    if summed:
+        H, g, energy = (H,), (g,), (energy,)
+    H, g, energy = tuple(H), tuple(g), tuple(energy)
+    if not 1 <= len(H) <= MAX_TERMS or len(g) != len(H) or len(energy) != len(H):
+        raise ValueError(f"{what}: 1 to {MAX_TERMS} terms of H, g and energy each, got "
+                         f"{len(H)}, {len(g)}, {len(energy)}")
     n_groups = state.iters.shape[0]
-    for name, t, dtype, shape in (("H", H, torch.float32, (6, 6)),
-                                  ("g", g, torch.float32, (6,)),
-                                  ("energy", energy, torch.float32, ()),
-                                  ("pose", state.pose, torch.float32, (STATE,)),
-                                  ("ints", state.ints, torch.int32, (2,)),
-                                  ("done", state.done, torch.bool, (1,)),
-                                  ("iters", state.iters, torch.int32, (n_groups,))):
+    for name, t, dtype, shape in ((("pose", state.pose, torch.float32, (STATE,)),
+                                   ("ints", state.ints, torch.int32, (2,)),
+                                   ("done", state.done, torch.bool, (1,)),
+                                   ("iters", state.iters, torch.int32, (n_groups,)))
+                                  + tuple(("H", t, torch.float32, (6, 6)) for t in H)
+                                  + tuple(("g", t, torch.float32, (6,)) for t in g)
+                                  + tuple(("energy", t, torch.float32, ()) for t in energy)):
         _check(what, name, t, dtype, shape)
     if not 0 <= int(group) < n_groups or int(n_iters) < 0:
         raise ValueError(f"{what}: group {group} of {n_groups}, n_iters {n_iters}")
-    if cuda_build.on_cpu(what, H, g, energy, *state):
+    if cuda_build.on_cpu(what, *H, *g, *energy, *state):
+        if summed:
+            return gn_step_plain(H[0], g[0], energy[0], state, int(group), int(n_iters))
         return gn_step_plain(H, g, energy, state, int(group), int(n_iters))
+    dev = state.pose.device
+    out = torch.empty(43, dtype=torch.float32, device=dev)
+    parts = [t.data_ptr() for term in zip(H, g, energy) for t in term]
     lib = cuda_build.load("gn")
-    cuda_build.check(lib.gn_step(H.data_ptr(), g.data_ptr(), energy.data_ptr(),
-                                 state.pose.data_ptr(), state.ints.data_ptr(),
+    cuda_build.check(lib.gn_step((ctypes.c_void_p * len(parts))(*parts), len(H),
+                                 out.data_ptr(), state.pose.data_ptr(), state.ints.data_ptr(),
                                  state.done.data_ptr(), state.iters.data_ptr(), int(group),
-                                 int(n_iters), cuda_build.stream_ptr(H.device)), what)
+                                 int(n_iters), cuda_build.stream_ptr(dev)), what)
     cuda_build.count_launch(gn_step)
+    return out[:36].view(6, 6), out[36:42], out[42]
 
 
 gn_step.launches = 0

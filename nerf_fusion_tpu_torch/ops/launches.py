@@ -22,7 +22,7 @@ from __future__ import annotations
 import re
 import threading
 
-from . import cuda_build, gather, gn, mlp, photometric, stencil
+from . import cuda_build, gather, gn, mlp, photometric, sdf_term, stencil
 
 EXCLUSIVE = threading.RLock()
 
@@ -38,6 +38,8 @@ _PLAIN = {
     "select_gather": gather.select_gather,
     "photometric_hg": photometric.photometric_hg,
     "gn_step": gn.gn_step,
+    "sdf_rows": sdf_term.sdf_rows,
+    "sdf_hg": sdf_term.sdf_hg,
 }
 # the row gather's counters, one per row width
 ROW_GATHER = {f"row_gather_c{c}": c for c in gather.ROW_WIDTHS}
@@ -79,7 +81,9 @@ _KERNELS = (("decoder_kernel<false>", "decoder_forward"),
             ("photometric_kernel", "photometric_hg"),
             ("gn_step_kernel", "gn_step"),
             ("select_gather_kernel", "select_gather"),
-            ("lane_gather_kernel", "lane_gather"))
+            ("lane_gather_kernel", "lane_gather"),
+            ("sdf_rows_kernel", "sdf_rows"),
+            ("sdf_hg_kernel", "sdf_hg"))
 # csrc/stencil.cu's Mode, as the trace prints it: ((anonymous namespace)::Mode)2
 _STENCIL_MODES = {"0": "stencil_count", "1": "stencil_normals", "2": "stencil_frontend"}
 

@@ -2,7 +2,9 @@
 
 ``photometric_hg`` returns the normal equations of the photometric term at
 one pyramid level, (H (6, 6), g (6,), energy (), count ()), for a relative
-pose given as ``krkinv`` = K R K^-1 and ``kt`` = K t:
+pose (R, t) with the level's ``K`` = (K, K^-1) (the warp's K R K^-1 and
+K t formed inside the kernel, R and t read by pointer), or given as
+``R`` = K R K^-1 and ``t`` = K t where ``K`` is None:
 
   * ``Dense(intensity, depth, gradient)``: the current level's planes,
     evaluated at every ``stride``-th pixel (``imgproc.rgb_odometry``);
@@ -26,6 +28,7 @@ its launches in ``photometric_hg.launches``.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -61,10 +64,15 @@ def robust_weight(x, kernel: str, k: float):
     raise NotImplementedError(kernel)
 
 
-def photometric_hg_plain(prev_rows, level, krkinv, kt, fx, fy, cx, cy, *,
+def photometric_hg_plain(prev_rows, level, R, t, fx, fy, cx, cy, *, K=None,
                          min_grad_scale: float, max_depth_delta: float, stride: int,
                          robust_kernel, robust_k: float, rgb_weight):
     """The photometric term in plain PyTorch: (H, g, energy, count)."""
+    if K is None:
+        krkinv, kt = R, t
+    else:
+        Km, Kinv = K
+        krkinv, kt = Km @ R @ Kinv, Km @ t
     if isinstance(level, Sparse):
         f, J, ok = imgproc.rgb_odometry_sparse(prev_rows, level.W, level.H, level.pix,
                                                fx, fy, cx, cy, krkinv, kt,
@@ -102,20 +110,29 @@ def _workspace(device):
     return ws
 
 
+@functools.lru_cache(maxsize=None)
+def _identity(device) -> torch.Tensor:
+    """I (3, 3) on ``device``, made once: the K and K^-1 of a call given
+    K R K^-1 and K t themselves."""
+    return torch.eye(3, dtype=torch.float32, device=device)
+
+
 def _check_f32(what, name, t, shape):
     if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
         raise ValueError(f"{what}: {name} must be a contiguous float32 {tuple(shape)} "
                          f"tensor, got {tuple(t.shape)} {t.dtype}")
 
 
-def photometric_hg(prev_rows, level, krkinv, kt, fx, fy, cx, cy, *,
+def photometric_hg(prev_rows, level, R, t, fx, fy, cx, cy, *, K=None,
                    min_grad_scale: float, max_depth_delta: float, stride: int,
                    robust_kernel, robust_k: float, rgb_weight):
     """The photometric term at one level: (H (6, 6), g (6,), energy (), count ()).
 
-    ``rgb_weight``: a float or a () float32 tensor on the operands' device;
-    the kernel reads it through a pointer, so a captured graph sees the
-    value the tracker's state machine sets."""
+    ``R`` (3, 3), ``t`` (3,): the relative pose, with ``K`` the level's
+    (K (3, 3), K^-1 (3, 3)); where ``K`` is None, K R K^-1 and K t.
+    ``rgb_weight``: a float or a () float32 tensor on the operands' device.
+    The kernel reads R, t, K and the weight through pointers, so a captured
+    graph sees the pose and the weight that the tracker's state holds."""
     what = "photometric_hg"
     if robust_kernel not in ROBUST_KERNELS:
         raise NotImplementedError(robust_kernel)
@@ -123,29 +140,32 @@ def photometric_hg(prev_rows, level, krkinv, kt, fx, fy, cx, cy, *,
         W, H = int(level.W), int(level.H)
         vecs, valid = tuple(level.pix[:6]), level.pix[6]
         n = vecs[0].shape[0]
-        for name, t in zip(("u", "v", "i1", "d1", "gx", "gy"), vecs):
-            _check_f32(what, name, t, (n,))
+        for name, v in zip(("u", "v", "i1", "d1", "gx", "gy"), vecs):
+            _check_f32(what, name, v, (n,))
         if valid.dtype != torch.bool or tuple(valid.shape) != (n,) or not valid.is_contiguous():
             raise ValueError(f"{what}: valid must be a contiguous bool ({n},) tensor")
         vecs += (valid,)
     elif isinstance(level, Dense):
         H, W = level.intensity.shape
         vecs = tuple(level)
-        for name, t, shape in zip(("intensity", "depth", "gradient"), vecs,
+        for name, v, shape in zip(("intensity", "depth", "gradient"), vecs,
                                   ((H, W), (H, W), (2, H, W))):
-            _check_f32(what, name, t, shape)
+            _check_f32(what, name, v, shape)
         if int(stride) < 1:
             raise ValueError(f"{what}: stride must be >= 1, got {stride}")
     else:
         raise ValueError(f"{what}: level must be Dense or Sparse, got {type(level)}")
     _check_f32(what, "prev_rows", prev_rows, (H * W, 2))
-    _check_f32(what, "krkinv", krkinv, (3, 3))
-    _check_f32(what, "kt", kt, (3,))
+    _check_f32(what, "R", R, (3, 3))
+    _check_f32(what, "t", t, (3,))
+    Ks = () if K is None else tuple(K)
+    for name, k in zip(("K", "K^-1"), Ks):
+        _check_f32(what, name, k, (3, 3))
     if H * W >= 2 ** 31:
         raise ValueError(f"{what}: more than 2^31 - 1 source rows")
-    if cuda_build.on_cpu(what, prev_rows, krkinv, kt, *vecs):
+    if cuda_build.on_cpu(what, prev_rows, R, t, *Ks, *vecs):
         return photometric_hg_plain(
-            prev_rows, level, krkinv, kt, fx, fy, cx, cy, min_grad_scale=min_grad_scale,
+            prev_rows, level, R, t, fx, fy, cx, cy, K=K, min_grad_scale=min_grad_scale,
             max_depth_delta=max_depth_delta, stride=stride, robust_kernel=robust_kernel,
             robust_k=robust_k, rgb_weight=rgb_weight)
     if prev_rows.data_ptr() % 8:
@@ -158,6 +178,8 @@ def photometric_hg(prev_rows, level, krkinv, kt, fx, fy, cx, cy, *,
     _check_f32(what, "rgb_weight", rgb_weight, ())
     if rgb_weight.device != dev:
         raise ValueError(f"{what}: rgb_weight on {rgb_weight.device}, operands on {dev}")
+    Km, Kinv = Ks or (_identity(dev),) * 2
+    pose = (R.data_ptr(), t.data_ptr(), Km.data_ptr(), Kinv.data_ptr())
     lib = cuda_build.load("photometric")
     scalars = (float(fx), float(fy), float(cx), float(cy))
     tail = (ROBUST_KERNELS[robust_kernel], float(robust_k), rgb_weight.data_ptr(),
@@ -165,13 +187,12 @@ def photometric_hg(prev_rows, level, krkinv, kt, fx, fy, cx, cy, *,
             cuda_build.stream_ptr(dev))
     if isinstance(level, Sparse):
         status = lib.photometric_hg_sparse(
-            prev_rows.data_ptr(), W, H, *(t.data_ptr() for t in vecs), n,
-            krkinv.data_ptr(), kt.data_ptr(), *scalars, float(max_depth_delta), *tail)
+            prev_rows.data_ptr(), W, H, *(v.data_ptr() for v in vecs), n, *pose, *scalars,
+            float(max_depth_delta), *tail)
     else:
         status = lib.photometric_hg_dense(
-            prev_rows.data_ptr(), W, H, *(t.data_ptr() for t in vecs), int(stride),
-            krkinv.data_ptr(), kt.data_ptr(), *scalars, float(min_grad_scale),
-            float(max_depth_delta), *tail)
+            prev_rows.data_ptr(), W, H, *(v.data_ptr() for v in vecs), int(stride), *pose,
+            *scalars, float(min_grad_scale), float(max_depth_delta), *tail)
     cuda_build.check(status, what)
     cuda_build.count_launch(photometric_hg)
     return out[:36].view(6, 6), out[36:42], out[42], out[43]

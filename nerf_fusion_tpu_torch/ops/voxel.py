@@ -56,6 +56,27 @@ def clamp_grid(grid_id: torch.Tensor, n_xyz) -> torch.Tensor:
     return torch.minimum(torch.clamp_min(grid_id, 0), n - 1)
 
 
+def decoder_rows(xyz: torch.Tensor, bound_min: torch.Tensor, voxel_size: float, n_xyz,
+                 indexer: torch.Tensor, obs_count: torch.Tensor, latents: torch.Tensor,
+                 count_th: float):
+    """The decoder's input at world points ``xyz`` (N, 3): (x (N, L + 3) =
+    [the latent of the voxel that holds the point, rel], valid (N,)).
+
+    rel = (xyz - bound_min) / voxel_size - grid - 0.5, the voxel-local
+    coordinates; the slot is read from ``indexer`` at the clamped voxel and
+    clamped to the latents; valid: the voxel is in bounds, holds a slot and
+    its ``obs_count`` exceeds ``count_th``.  An invalid point still gets a
+    row (of the clamped slot); callers mask."""
+    xyz_norm, grid = world_to_grid(xyz, bound_min, voxel_size)
+    inb = in_bounds(grid, n_xyz)
+    gid = linearize_id(clamp_grid(grid, n_xyz), n_xyz)
+    slot = indexer.long()[gid]
+    slot_c = slot.clamp(0, latents.shape[0] - 1)
+    valid = inb & (slot >= 0) & (obs_count[slot_c] > count_th)
+    rel = xyz_norm - grid.to(torch.float32) - 0.5
+    return torch.cat([latents[slot_c], rel], dim=1), valid
+
+
 def occurrence_count(ids: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Per element: how many valid entries share its id (0 where invalid)."""
     if ids.numel() == 0:

@@ -197,16 +197,8 @@ def get_sdf(state: MapState, cfg: MapConfig, decoder, xyz: torch.Tensor,
     """
     if bound_min is None:
         bound_min = torch.as_tensor(cfg.bound_min, dtype=torch.float32, device=xyz.device)
-    xyz_norm = (xyz - bound_min[None, :]) / cfg.voxel_size
-    grid = torch.ceil(xyz_norm).long() - 1
-    inb = vox.in_bounds(grid, cfg.n_xyz)
-    gid = vox.linearize_id(vox.clamp_grid(grid, cfg.n_xyz), cfg.n_xyz)
-    slot = state.indexer.long()[gid]
-    slot_c = slot.clamp(0, cfg.latent_capacity - 1)
-    valid = inb & (slot >= 0) & (state.obs_count[slot_c] > cfg.ignore_count_th)
-    latent = state.latents[slot_c]
-    rel = xyz_norm - grid.to(torch.float32) - 0.5
-    x = torch.cat([latent, rel], dim=1)
+    x, valid = vox.decoder_rows(xyz, bound_min, cfg.voxel_size, cfg.n_xyz, state.indexer,
+                                state.obs_count, state.latents, cfg.ignore_count_th)
     if with_grad:
         out, grad = decoder.forward_grad(x)
         return out[:, 0], out[:, 1], valid, grad

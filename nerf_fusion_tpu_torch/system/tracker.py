@@ -33,14 +33,21 @@ Spans (``utils/trace.py``): ``tracker.prelude``, one ``tracker.eval`` and
 ``tracker.done_read`` an evaluation and ``tracker.epilogue`` around the
 replays or eager calls of a tracked frame; ``frontend.preprocess`` and
 ``tracker.finish`` on the ``set_pose`` path.  Counters:
-``tracker.gn_evals.g<k>``, group k's evaluations.
+``tracker.gn_evals.g<k>``, group k's evaluations; ``tracker.graph_nodes.g<k>``,
+the kernel nodes of group k's evaluation graph, at each capture.
 
 SDF residuals are ``r = sdf(T p) / std`` with std held constant; the
 position gradient is the decoder kernel's forward-mode d sdf / d rel,
 chained to world coordinates as (1 / std) grad / voxel_size and to the
 twist of the last pose: J = [dS/dx R_last, (delta p) x (dS/dx R_last)].
-The photometric term of a level is one ``ops.photometric.photometric_hg``
-call: one kernel launch on the card.
+The SDF term is three kernel launches on the card (``ops.sdf_term``
+``sdf_rows``, ``ops.mlp.decoder_forward_grad``, ``sdf_term.sdf_hg``), the
+photometric term of a level one (``ops.photometric.photometric_hg``, which
+forms K dR K^-1 and K dt itself), and ``gn.gn_step`` sums the terms: a GN
+evaluation is hand-written kernels only, each reading the delta pose where
+the last step wrote it, so an SDF-plus-rgb group's graph holds five kernel
+nodes and an rgb-only group's two (``_Graph.nodes``, counted at capture
+into ``tracker.graph_nodes.g<k>``).
 
 ``track_points_lm`` is the SDF-only Levenberg-Marquardt point tracker (no
 path of the loop calls it): a fixed number of iterations with the pose,
@@ -59,7 +66,7 @@ from ..utils import se3_torch as st
 from ..utils import trace
 from ..utils.config import dict_to_args
 from ..utils.se3 import Isometry
-from ..ops import gn, imgproc, launches, photometric
+from ..ops import cuda_build, gn, imgproc, launches, photometric, sdf_term
 from .frontend import preprocess_frame
 from .map import get_sdf
 
@@ -122,30 +129,17 @@ class TrackerConfig(NamedTuple):
 
 def _sdf_Hg(map_state, map_cfg, decoder, tcfg: TrackerConfig,
             last_R, last_t, dR, dt, pts, mask, bound_min=None):
-    """SDF term: H (6, 6), g (6,), energy ()."""
-    p_delta = st.transform_points(dR, dt, pts)              # delta @ p
-    p_world = st.transform_points(last_R, last_t, p_delta)
-    sdf, std, valid, dsdf_drel = get_sdf(map_state, map_cfg, decoder, p_world,
-                                         bound_min, with_grad=True)
-    r = sdf / std
-    # d r / d p_world: 1 / std (std held constant), the kernel's d sdf / d rel
-    # and d rel / d p_world = 1 / voxel_size, in the order autograd chains them
-    dsdf_dpos = (torch.ones_like(std) / std)[:, None] * dsdf_drel / map_cfg.voxel_size
-    m = (mask & valid).to(r.dtype)
-    # The twist lives in the last-camera frame (delta <- exp(xi) o delta),
-    # so the world gradient chain-rules through d x_world / d rho = R_last.
-    La = last_R.T @ dsdf_dpos.T                               # (3, M)
-    q = p_delta.T                                             # (3, M)
-    Lb = torch.stack([q[1] * La[2] - q[2] * La[1],
-                      q[2] * La[0] - q[0] * La[2],
-                      q[0] * La[1] - q[1] * La[0]], 0)
-    J = torch.cat([La, Lb], dim=0)                            # (6, M)
-    w = photometric.robust_weight(r, tcfg.sdf_robust_kernel, tcfg.sdf_robust_k) * m
-    scale = 1.0 / torch.clamp_min(m.sum(), 1.0)
-    H = ((J * w[None, :]) @ J.T) * scale
-    g = (J @ (w * r)) * scale
-    energy = torch.sum(r * (w * r)) * scale
-    return H, g, energy
+    """SDF term: H (6, 6), g (6,), energy (); ``sdf_term.sdf_rows``, the
+    decoder's ``forward_grad`` and ``sdf_term.sdf_hg``."""
+    if bound_min is None:
+        bound_min = torch.as_tensor(map_cfg.bound_min, dtype=torch.float32, device=pts.device)
+    x, p_delta, use = sdf_term.sdf_rows(
+        pts, mask, dR, dt, last_R, last_t, bound_min, map_cfg.voxel_size, map_cfg.n_xyz,
+        map_state.indexer, map_state.obs_count, map_state.latents, map_cfg.ignore_count_th)
+    out, grad = decoder.forward_grad(x)
+    res = sdf_term.sdf_hg(out, grad, p_delta, use, last_R, map_cfg.voxel_size,
+                          tcfg.sdf_robust_kernel, tcfg.sdf_robust_k)
+    return res[:36].view(6, 6), res[36:42], res[42]
 
 
 def _intrinsics(fx, fy, cx, cy, device):
@@ -169,9 +163,7 @@ def _rgb_Hg(tcfg: TrackerConfig, level_data, fx, fy, cx, cy, dR, dt, rgb_weight,
     pix) from the once-per-frame pixel selection; replaces the dense warp.
     ``K``: the level's (K, K^-1) from ``_intrinsics``, built here if None.
     ``rgb_weight``: a float or a () tensor on the device."""
-    Km, Kinv = _intrinsics(fx, fy, cx, cy, dR.device) if K is None else K
-    krkinv = Km @ dR @ Kinv
-    kt = Km @ dt
+    K = _intrinsics(fx, fy, cx, cy, dR.device) if K is None else K
     if sparse is not None:
         prev_rows, W, H_, pix = sparse
         level = photometric.Sparse(W, H_, pix)
@@ -179,7 +171,7 @@ def _rgb_Hg(tcfg: TrackerConfig, level_data, fx, fy, cx, cy, dR, dt, rgb_weight,
         prev_rows, cur_i, cur_d, cur_g = level_data
         level = photometric.Dense(cur_i, cur_d, cur_g)
     H, g, energy, _ = photometric.photometric_hg(
-        prev_rows, level, krkinv, kt, fx, fy, cx, cy,
+        prev_rows, level, dR, dt, fx, fy, cx, cy, K=K,
         min_grad_scale=tcfg.min_grad_scale, max_depth_delta=tcfg.max_depth_delta,
         stride=tcfg.rgb_stride, robust_kernel=tcfg.rgb_robust_kernel,
         robust_k=tcfg.rgb_robust_k, rgb_weight=rgb_weight)
@@ -317,37 +309,45 @@ def _select(tcfg: TrackerConfig, cur_pyr, prev_rows) -> dict:
     return sparse
 
 
-def build_Hg(f: _Terms, terms, dR, dt):
-    """The normal equations (H, g, energy) of ``terms`` at the delta pose."""
-    H = torch.zeros((6, 6), dtype=torch.float32, device=dR.device)
-    g = torch.zeros(6, dtype=torch.float32, device=dR.device)
-    energy = torch.zeros((), dtype=torch.float32, device=dR.device)
+def term_Hg(f: _Terms, terms, dR, dt):
+    """The normal equations of each of ``terms`` at the delta pose, in
+    order: ((H, ...), (g, ...), (energy, ...))."""
+    parts = []
     for term in terms:
         if term[0] == "sdf":
-            Ht, gt, et = _sdf_Hg(f.map_state, f.map_cfg, f.decoder, f.tcfg, f.last_R,
-                                 f.last_t, dR, dt, f.pts, f.mask, f.bound_min)
+            parts.append(_sdf_Hg(f.map_state, f.map_cfg, f.decoder, f.tcfg, f.last_R,
+                                 f.last_t, dR, dt, f.pts, f.mask, f.bound_min))
         elif term[0] == "rgb":
             lev = int(term[1]) if len(term) > 1 else 0
             s = _level_scale(f.tcfg, lev)
             level_data = (f.prev_rows[lev], f.cur_pyr.intensity[lev], f.cur_pyr.depth[lev],
                           f.cur_pyr.gradient[lev])
-            Ht, gt, et = _rgb_Hg(f.tcfg, level_data, f.fx * s, f.fy * s, f.cx * s,
+            parts.append(_rgb_Hg(f.tcfg, level_data, f.fx * s, f.fy * s, f.cx * s,
                                  f.cy * s, dR, dt, f.rgb_weight, sparse=f.sparse.get(lev),
-                                 K=f.intr[lev])
+                                 K=f.intr[lev]))
         elif term[0] == "motion":
-            Ht, gt, et = _motion_Hg(f.tcfg, dR, dt)
+            parts.append(_motion_Hg(f.tcfg, dR, dt))
         else:
             raise ValueError(f"unknown tracking term {term[0]!r}")
-        H, g, energy = H + Ht, g + gt, energy + et
-    return H, g, energy
+    return tuple(zip(*parts))
+
+
+def build_Hg(f: _Terms, terms, dR, dt):
+    """The normal equations (H, g, energy) of ``terms`` at the delta pose,
+    summed in PyTorch (``gn.sum_terms``)."""
+    return gn.sum_terms(*term_Hg(f, terms, dR, dt))
 
 
 def gn_iteration(f: _Terms, state: gn.GNState, group: int, step=gn.gn_step):
     """One evaluation of group ``group``'s terms and its GN step (in place),
-    ``step`` with ``gn.gn_step``'s signature.
+    ``step`` with ``gn.gn_step``'s signature: ``gn.gn_step`` itself sums the
+    terms (on the card inside its kernel), any other is handed the sums.
     :return: the evaluation's (H, g, energy)."""
     n_iters, terms = f.tcfg.iter_config[group]
-    H, g, energy = build_Hg(f, terms, state.dR, state.dt)
+    parts = term_Hg(f, terms, state.dR, state.dt)
+    if step is gn.gn_step:
+        return gn.gn_step(*parts, state, group, n_iters)
+    H, g, energy = gn.sum_terms(*parts)
     step(H, g, energy, state, group, n_iters)
     return H, g, energy
 
@@ -419,8 +419,9 @@ def track_gauss_newton(map_state, map_cfg, decoder, tcfg: TrackerConfig,
 
 class _Graph:
     """``fn()`` captured as a CUDA graph (``out``: its outputs, whose storage
-    each replay rewrites).  The capture launches nothing, so its launch
-    counts are taken back; ``replay`` adds them once per replay.  The
+    each replay rewrites; ``nodes``: its kernel nodes, read after the
+    capture).  The capture launches nothing, so its launch counts are taken
+    back; ``replay`` adds them once per replay.  The
     capture checks this thread's CUDA calls only: a reader's decode threads
     run beside it.  Python's cyclic garbage collector is off during the
     capture: a collection there destroys the CUDA graphs of an earlier
@@ -434,7 +435,7 @@ class _Graph:
         # no worker thread launches while the counters are diffed
         with launches.EXCLUSIVE:
             before = launches.snapshot()
-            self.graph = torch.cuda.CUDAGraph()
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
             gc_on = gc.isenabled()
             gc.disable()
             try:
@@ -445,6 +446,8 @@ class _Graph:
                     gc.enable()
             self.launches = launches.diff(launches.snapshot(), before)
             launches.add(self.launches, -1)
+        self.nodes = cuda_build.graph_kernel_nodes(self.graph.raw_cuda_graph())
+        self.graph.instantiate()
 
     def replay(self):
         self.graph.replay()
@@ -514,6 +517,8 @@ class _FrameStep:
                 "iteration": [_Graph(lambda g=g: self.iteration(g))
                               for g in range(len(t.tcfg.iter_config))],
                 "epilogue": _Graph(self.epilogue)}
+            for g, graph in enumerate(self.graphs["iteration"]):
+                trace.count(f"tracker.graph_nodes.g{g}", graph.nodes)
             return out, pre
         graphs = self.graphs
         with trace.span("tracker.prelude"):

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from nerf_fusion_tpu_torch.models.io import load_model
-from nerf_fusion_tpu_torch.ops import cuda_build, gather, imgproc, mlp, photometric, stencil
+from nerf_fusion_tpu_torch.ops import (cuda_build, gather, imgproc, mlp, photometric, sdf_term,
+                                       stencil)
 from nerf_fusion_tpu_torch.system.tracker import _intrinsics
 from nerf_fusion_tpu_torch.tools.preprocess_probe import (frontend_mismatch, frontend_ok,
                                                           normal_agreement)
@@ -636,6 +637,175 @@ def test_tracked_frames_replay_as_graphs(cuda_device, budget):
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert all(torch.isfinite(p).all() for p in tr.all_pd_pose[-1])
     assert isinstance(tr.gn, gn.GNState)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,stride,sparse,robust", [
+    (480, 640, 2, 0, "huber"),           # the loop's level 0, dense
+    (240, 320, 2, 0, None),
+    (480, 640, 2, 24576, None),          # the fast path's level-0 budget
+    (61, 83, 1, 1001, "tukey"),
+])
+def test_photometric_kernel_forms_the_warp(cuda_device, h, w, stride, sparse, robust):
+    """Given dR, dt and the level's (K, K^-1), the kernel forms K dR K^-1
+    and K dt as the plain version's cuBLAS products round them: the valid
+    count exactly the plain version's (on the card), H, g and the energy
+    within 1e-4 of each output's largest |entry|, and the same outputs as
+    the kernel given the products formed beforehand."""
+    args, kw = _photometric_case(cuda_device, h, w, stride, sparse, seed=h + sparse + 1,
+                                 nan_depth=0.05, robust=robust)
+    rows, level, _, _, fx, fy, cx, cy = args
+    R, t = st.se3_exp(torch.tensor([0.03, -0.02, 0.02, 0.01, 0.04, -0.005]))
+    K, Kinv = _intrinsics(fx, fy, cx, cy, cuda_device)
+    R, t = R.contiguous().to(cuda_device), t.to(cuda_device)
+    pose = (rows, level, R, t, fx, fy, cx, cy)
+    out = photometric.photometric_hg(*pose, K=(K, Kinv), **kw)
+    ref = photometric.photometric_hg_plain(*pose, K=(K, Kinv), **kw)
+    formed = photometric.photometric_hg(rows, level, K @ R @ Kinv, K @ t, fx, fy, cx, cy,
+                                        **kw)
+    assert float(out[3]) == float(ref[3]) > 0
+    for a, b, c in zip(out, ref, formed):
+        assert torch.equal(a, c)
+        assert float((a - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1e-30)
+
+
+def _room_sdf_case(device, model, n=8192):
+    """The room's map after frame 10 integrated at its pose, frame 11's
+    first ``n`` points and its true delta pose: sdf_rows' operands."""
+    from nerf_fusion_tpu_torch.data.synth import SyntheticSequence
+    from nerf_fusion_tpu_torch.system.map import SparseVoxelMap
+    from nerf_fusion_tpu_torch.system.tracker import SDFTracker
+    from nerf_fusion_tpu_torch.utils.config import dict_to_args, parse_config_yaml
+
+    args = parse_config_yaml(CKPT.parent.parent.parent / "configs/fusion-synth.yaml")
+    model.to(device)
+    seq = SyntheticSequence(n_frames=20, width=640, height=480, device=device)
+    f0, f1 = seq.render_frame(10), seq.render_frame(11)
+    c = f0.calib
+    vmap = SparseVoxelMap(model, dict_to_args(args.mapping), 29, device)
+    tracker = SDFTracker(vmap, args.tracking, point_budget=40960)
+    pre0 = tracker.preprocess(f0.rgb, f0.depth, c)
+    pre1 = tracker.preprocess(f1.rgb, f1.depth, c)
+    R0 = torch.as_tensor(f0.gt_pose.q.rotation_matrix, dtype=torch.float32, device=device)
+    t0 = torch.as_tensor(f0.gt_pose.t, dtype=torch.float32, device=device)
+    vmap.integrate_keyframe(pre0.points, pre0.normals, pre0.mask, pose=(R0, t0))
+    rel = f0.gt_pose.inv().dot(f1.gt_pose).matrix
+    dR = torch.as_tensor(rel[:3, :3], dtype=torch.float32, device=device).contiguous()
+    dt = torch.as_tensor(rel[:3, 3], dtype=torch.float32, device=device).contiguous()
+    cfg, st_ = vmap.cfg, vmap.state
+    return (pre1.points[:n], pre1.mask[:n], dR, dt, R0.contiguous(), t0, vmap.bound_min,
+            cfg.voxel_size, cfg.n_xyz, st_.indexer, st_.obs_count, st_.latents,
+            cfg.ignore_count_th)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,k", [("huber", 5.0), ("tukey", 3.0), (None, 1.0)])
+def test_sdf_kernels_match_plain(cuda_device, model, kernel, k):
+    """At the GN budget of 8192 rows on the room's map: sdf_rows' decoder
+    input, p_delta and use bitwise the plain version's (the voxel of every
+    point decided alike); sdf_hg's count exactly, H, g and the energy within
+    1e-5 of each output's largest |entry|; one launch counted a call."""
+    args = _room_sdf_case(cuda_device, model)
+    dec = model.decoder
+    n0 = (sdf_term.sdf_rows.launches, sdf_term.sdf_hg.launches)
+    rows = sdf_term.sdf_rows(*args)
+    plain = sdf_term.sdf_rows_plain(*args)
+    torch.cuda.synchronize()
+    print(f"sdf_rows: {int((rows[0] != plain[0]).any(1).sum())} rows of x, "
+          f"{int((rows[1] != plain[1]).any(1).sum())} of p_delta, "
+          f"{int((rows[2] != plain[2]).sum())} use bits differ; "
+          f"{int(rows[2].sum())} rows used of {rows[2].shape[0]}")
+    for a, b in zip(rows, plain):
+        assert torch.equal(a, b)
+    assert int(rows[2].sum()) > 1000
+    out, grad = mlp.decoder_forward_grad(rows[0], dec.packed, dec.mats)
+    vs, last_R = args[7], args[4]
+    res = sdf_term.sdf_hg(out, grad, rows[1], rows[2], last_R, vs, kernel, k)
+    ref = sdf_term.sdf_hg_plain(out, grad, rows[1], rows[2], last_R, vs, kernel, k)
+    assert (sdf_term.sdf_rows.launches, sdf_term.sdf_hg.launches) == (n0[0] + 1, n0[1] + 1)
+    assert float(res[43]) == float(ref[43]) == float(rows[2].sum())
+    for lo, hi in ((0, 36), (36, 42), (42, 43)):
+        a, b = res[lo:hi], ref[lo:hi]
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), (lo, a, b)
+    assert float(res[42]) > 0
+
+
+@pytest.mark.cuda
+def test_sdf_term_deterministic_across_replays(cuda_device, model):
+    """sdf_rows, decoder_forward_grad and sdf_hg captured in one CUDA graph:
+    20 replays give the same H, g, energy and count bit for bit."""
+    args = _room_sdf_case(cuda_device, model)
+    dec = model.decoder
+
+    def term():
+        x, p_delta, use = sdf_term.sdf_rows(*args)
+        out, grad = mlp.decoder_forward_grad(x, dec.packed, dec.mats)
+        return sdf_term.sdf_hg(out, grad, p_delta, use, args[4], args[7], "huber", 5.0)
+
+    eager = term()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        res = term()
+    got = []
+    for _ in range(20):
+        graph.replay()
+        got.append(res.clone())
+    torch.cuda.synchronize()
+    assert all(torch.equal(got[0], r) for r in got) and torch.equal(got[0], eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [0, 6144])
+def test_evaluation_graphs_are_hand_written_kernels(cuda_device, budget):
+    """fusion-synth's 10 / 10 / 50 schedule at 320x240: the evaluation graphs
+    of the rgb-only group and of the two SDF-plus-rgb groups hold 2, 5 and 5
+    kernel nodes, each one of the port's launches (no PyTorch kernel runs
+    between two GN steps), ``stats.json``'s counter records them, and over
+    three traced frames the launch counters equal the profiler's kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nerf_fusion_tpu_torch.data.synth import SyntheticSequence
+    from nerf_fusion_tpu_torch.ops import launches
+    from nerf_fusion_tpu_torch.system.pipeline import FusionPipeline
+    from nerf_fusion_tpu_torch.utils import trace
+    from nerf_fusion_tpu_torch.utils.config import dict_to_args, parse_config_yaml
+
+    repo = CKPT.parent.parent.parent
+    args = parse_config_yaml(repo / "configs/fusion-synth.yaml")
+    args.mapping = dict_to_args(args.mapping)
+    args.tracking = dict_to_args(args.tracking)
+    args.tracking.rgb["pixel_budget"] = budget
+    model, args.model = load_model(repo / args.training_hypers, 300)
+    seq = SyntheticSequence(n_frames=8, width=320, height=240, device=cuda_device)
+    pipe = FusionPipeline(model, args, cuda_device)
+    with trace.capture() as cap:
+        for i in range(3):
+            pipe.process_frame(seq.render_frame(i), i)
+    graphs = pipe.tracker._step.graphs["iteration"]
+    assert [g.nodes for g in graphs] == [2, 5, 5]
+    assert all(g.nodes == sum(g.launches.values()) for g in graphs)
+    assert graphs[2].launches == dict(dict.fromkeys(launches.NAMES, 0), sdf_rows=1,
+                                      decoder_forward_grad=1, sdf_hg=1, photometric_hg=1,
+                                      gn_step=1)
+    counters = cap.export()["counters"]
+    assert [counters[f"tracker.graph_nodes.g{g}"] for g in range(3)] == [2, 5, 5]
+    frames = [seq.render_frame(i) for i in range(3, 6)]
+    torch.cuda.synchronize()
+    before = launches.snapshot()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i, f in enumerate(frames, 3):
+            pipe.process_frame(f, i)
+        torch.cuda.synchronize()
+    ran = launches.diff(launches.snapshot(), before)
+    traced = dict.fromkeys(launches.NAMES, 0)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.name().startswith(("Memcpy",
+                                                                           "Memset")):
+            name = launches.counter_of(e.name())
+            if name is not None:
+                traced[name] += 1
+    assert traced == ran and ran["sdf_rows"] == ran["sdf_hg"] > 0
 
 
 def _full_width_train_args():
