@@ -16,7 +16,11 @@ float32:
   before it (in a posed cell: every pose of the window against the pose
   handed in, exactly);
 * map: ``prev`` integrated with the program's cloud and pose of the last
-  cadence frame, against ``last``;
+  cadence frame, against ``last``; where the configuration refines
+  (``do_optimize``), integrated and then refined with the program's jitter
+  of that cadence (``refine_numbers``);
+* refinement from set-up: the one of most eligible voxels, from the
+  program's state before it, its frame's cloud and pose and its jitter;
 * mesher: the batch of the last cadence's extraction, meshed from the
   state it was meshed from.
 
@@ -34,7 +38,7 @@ import numpy as np
 import torch
 
 from .discovery import ROOT
-from .reference import evaluate, frontend, mapping, mesh, tracker
+from .reference import evaluate, frontend, mapping, mesh, refine, tracker
 from .reference.model import Prior
 from .reference.precision import CONTROL, F32
 
@@ -115,13 +119,70 @@ def frontend_numbers(prog, ref, keys=None, conditioning=None, log=None) -> dict:
     return dict(out, frontend_point_gap=float(dp.max()), frontend_normal_gap=gap_n)
 
 
-def map_numbers(prog: dict, ref: dict) -> dict:
+def map_numbers(prog: dict, ref: dict, refined=None) -> dict:
+    """The latent gap over the slots not ``refined`` (all where None:
+    ``refine_numbers`` judges the others) and the slots that differ."""
     mism = int((prog["positions"] != ref["positions"]).sum()) \
         + int((prog["obs_count"] != ref["obs_count"]).sum()) \
         + int((prog["indexer"] != ref["indexer"]).sum()) \
         + abs(int(prog["n_occupied"]) - int(ref["n_occupied"]))
-    return {"map_latent_gap": float((prog["latents"] - ref["latents"]).abs().max()),
+    gap = (prog["latents"] - ref["latents"]).abs()
+    if refined is not None:
+        gap = gap[~refined]
+    return {"map_latent_gap": float(gap.max()) if gap.numel() else 0.0,
             "map_slot_mismatch": float(mism)}
+
+
+# A refined latent is compared by the median of its components' gaps, not
+# by the largest or a high quantile: Adam's first step is lr g / (|g| + eps),
+# about +-lr whatever |g|, so a component whose gradient sits at rounding
+# level can take either sign and move by up to 2 lr, and later steps carry
+# it on; the program's latent gradient is an index_add_ with atomics, whose
+# order differs from run to run.  The float32 reference reads the same tail
+# against a float64 one (a tenth of a percent of the components at 1e-3 to
+# 1e-2), while the median stays at rounding and moves with any fault that
+# shifts the refinement as a whole.
+REFINE_QUANTILE = 0.5
+
+
+def refine_numbers(prog: dict, ref: dict) -> dict:
+    """One refinement, the program's against the reference's.  Each side:
+    ``eligible`` (C,), ``latents`` (C, L) after it, ``nll`` (n_iters,) the
+    mean NLL before each step.  The slots whose eligibility differs; the
+    largest gap of the mean NLLs over max(|NLL|, 1) (inf where the step
+    counts differ); the ``REFINE_QUANTILE`` quantile (nearest rank) of the
+    component gaps over the slots either side refined (0 where none)."""
+    if prog is None:
+        return {"refine_eligible_mismatch": math.inf, "refine_nll_gap": math.inf,
+                "refine_latent_gap": math.inf}
+    mism = int((prog["eligible"] != ref["eligible"]).sum())
+    pn, rn = prog["nll"], ref["nll"]
+    if pn is None or pn.shape != rn.shape:
+        nll_gap = math.inf
+    else:
+        # relative where |NLL| >= 1, absolute below: a cadence's mean NLL over
+        # few pairs can cross 0, where a relative gap has no scale
+        nll_gap = float(((pn.double() - rn.double()).abs()
+                         / rn.double().abs().clamp_min(1.0)).max()) if rn.numel() else 0.0
+    both = prog["eligible"] | ref["eligible"]
+    gap = torch.sort((prog["latents"][both] - ref["latents"][both]).abs().flatten().double()).values
+    at = lambda q: float(gap[max(math.ceil(q * gap.numel()) - 1, 0)]) if gap.numel() else 0.0
+    return {"refine_eligible_mismatch": float(mism), "refine_nll_gap": nll_gap,
+            "refine_latent_gap": at(REFINE_QUANTILE),
+            # logged beside it: the gaps' spread and the components compared
+            "refine_latent_quantiles": [at(q) for q in (0.5, 0.9, 0.99, 0.995, 0.999, 1.0)],
+            "refine_latent_components": float(gap.numel()),
+            "refine_nlls": [None if pn is None else pn.tolist(), rn.tolist()]}
+
+
+def _merge_worst(readings: dict, numbers: dict, tag: str):
+    """The worse of the two refinements' readings of each number; what is
+    only logged, under ``<name>.<tag>``."""
+    for k, v in numbers.items():
+        if isinstance(v, float):
+            readings[k] = max(readings.get(k, -math.inf), v)
+        else:
+            readings[f"{k}.{tag}"] = v
 
 
 def pose_numbers(prog: list, ref: list, same_evals: list) -> dict:
@@ -170,12 +231,14 @@ def mesh_numbers(prog, ref) -> dict:
 
 
 def run(config: dict, traffic, cadences: list, poses: list, window_ids: list, dev,
-        log=print, control: bool = False, program_evals: dict = None):
+        log=print, control: bool = False, program_evals: dict = None, refines: dict = None):
     """``cadences``: the two cadence frames' captures (``harness.Capture``),
     the frames between them tracked against the first's map;
     ``program_evals``: the program's GN evaluations of each group by frame
     id, for those frames; ``window_ids``: the window's frames (the posed
-    poses and the quality log).
+    poses and the quality log); ``refines``: the program's refinements
+    (``harness.RefineTap``), ``check`` those of the cadence frames,
+    ``setup`` the set-up's of most eligible voxels.
 
     (checks {name: [value, limit]}, failed count, readings by side); with
     ``control`` the checks are the control's, the program's logged beside."""
@@ -218,14 +281,71 @@ def run(config: dict, traffic, cadences: list, poses: list, window_ids: list, de
         readings[name].update(frontend_numbers(got, ref_cloud, keys, ref["conditioning"],
                                                lambda m, n=name: log(f"{m} ({n})")))
 
-    # map: the last cadence's integration from the state before it
+    # map: the last cadence's integration from the state before it, and its
+    # refinement with the program's jitter
     pts, nrm, mask = last["cloud"]
     R, t = poses[last["frame_id"]]
+    refining = bool(fusion.get("do_optimize", False))
+    rcfg = config.get("refine")
+    refines = refines or {}
     ref_map = mapping.integrate(prior, prev["state"], mcfg, pts, nrm, mask, R, t, F32)
+    if refining:
+        rec = next((r for r in refines.get("check", [])
+                    if r["frame_id"] == last["frame_id"]), None)
+        # without the program's jitter the reference refines with none
+        jitter = rec["gt"] if rec is not None else torch.zeros(
+            (pts.shape[0], 8), dtype=torch.float32, device=pts.device)
+        ref_map = refine.refine(prior, ref_map, mcfg, rcfg, pts, nrm, mask, R, t, jitter, F32)
+        log(f"check: refinement of frame {last['frame_id']}: {int(ref_map['eligible'].sum())} "
+            f"eligible, {ref_map['sampled']} sampled voxels, {ref_map['pairs']} pairs; the "
+            f"program's jitter: mean {float(jitter.mean()):.3g}, std {float(jitter.std()):.5g}; "
+            f"its n_iters, code_reg_lambda: "
+            f"{(rec['n_iters'], rec['code_reg_lambda']) if rec is not None else None}")
     for name, prec in precs:
-        got = last["state"] if name == "program" else mapping.integrate(
-            prior, prev["state"], mcfg, pts, nrm, mask, R, t, prec)
-        readings[name].update(map_numbers(got, ref_map))
+        if name == "program":
+            got = last["state"]
+        else:
+            got = mapping.integrate(prior, prev["state"], mcfg, pts, nrm, mask, R, t, prec)
+            if refining:
+                got = refine.refine(prior, got, mcfg, rcfg, pts, nrm, mask, R, t, jitter, prec)
+        refined = None
+        if refining:
+            side = None if rec is None else {
+                "eligible": rec["refined"] if name == "program" else got["eligible"],
+                "latents": got["latents"], "nll": rec["nll"] if name == "program" else got["nll"]}
+            refined = ref_map["eligible"] if side is None \
+                else ref_map["eligible"] | side["eligible"]
+            nums = refine_numbers(side, ref_map)
+            log(f"check: refinement of frame {last['frame_id']} ({name}) {nums}")
+            _merge_worst(readings[name], nums, "cadence")
+        readings[name].update(map_numbers(got, ref_map, refined))
+
+    # refinement: the set-up's of most eligible voxels, from the program's
+    # state before it (the map stage above checks the integration that made it)
+    best = refines.get("setup")
+    if refining:
+        if best is None or "cloud" not in best:
+            log("check: no refinement in set-up")
+            for name, _ in precs:
+                _merge_worst(readings[name], refine_numbers(None, None), "setup")
+        else:
+            bpts, bnrm, bmask = best["cloud"]
+            Rb, tb = best["pose"]
+            sref = refine.refine(prior, best["state"], mcfg, rcfg, bpts, bnrm, bmask, Rb, tb,
+                                 best["gt"], F32)
+            log(f"check: set-up refinement of frame {best['frame_id']}: "
+                f"{int(sref['eligible'].sum())} eligible, {sref['sampled']} sampled voxels, "
+                f"{sref['pairs']} pairs")
+            for name, prec in precs:
+                if name == "program":
+                    side = {"eligible": best["refined"], "latents": best["latents"],
+                            "nll": best["nll"]}
+                else:
+                    side = refine.refine(prior, best["state"], mcfg, rcfg, bpts, bnrm, bmask,
+                                         Rb, tb, best["gt"], prec)
+                nums = refine_numbers(side, sref)
+                log(f"check: set-up refinement ({name}) {nums}")
+                _merge_worst(readings[name], nums, "setup")
 
     # tracker
     if traffic.posed:

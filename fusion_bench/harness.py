@@ -20,6 +20,13 @@ after it; the map's state and the processed cloud of both cadence frames,
 the second's mesh batch and the GN evaluations of the frames between are
 kept, and ``check.py`` holds them against the plain reference once the
 program is freed.
+
+Where the configuration refines latents (``do_optimize``), ``RefineTap``
+keeps, in set-up, the refinement of most eligible voxels with its frame's
+cloud and pose; over the traced frames, the corner pairs each refinement's
+steps count; over the check's interval, each refinement's jitter and
+result.  The window's refinements are read after it from the map's own
+log (their CUDA events, eligible and sampled voxels).
 """
 
 from __future__ import annotations
@@ -144,17 +151,76 @@ class ExtractTap:
         self.mod.fused_extract = self.orig
 
 
+class RefineTap:
+    """Each latent refinement of the map while installed, with the frame it
+    ran in (``frame_id``, set by the caller): wraps ``system.refine.
+    refine_latents_core``, which the map reaches through ``refine_latents``
+    and the module, and ``refine_targets``, which the core calls.  ``keep``:
+
+    * ``"rows"`` (traced frames): (frame id, the pairs that count as a
+      device tensor, ``n_iters``) in ``calls``; no host read;
+    * ``"check"``: a dict a call in ``calls``: the jitter, ``n_iters``,
+      ``code_reg_lambda``, the refined slots and latents, the mean NLL a
+      step (the map's log);
+    * ``"best"`` (set-up): the same for the call with the most eligible
+      voxels only, in ``best``, with a copy of the state passed in; the
+      count is read on the host after each call."""
+
+    def __init__(self, keep: str):
+        import nerf_fusion_tpu_torch.system.refine as refine_mod
+
+        self.mod, self.keep = refine_mod, keep
+        self.orig, self.orig_targets = refine_mod.refine_latents_core, refine_mod.refine_targets
+        self.frame_id, self.calls, self.best = None, [], None
+        made = []
+
+        def refine_targets(*a, **k):
+            made.append(self.orig_targets(*a, **k))
+            return made[-1]
+
+        # the map passes n_iters, code_reg_lambda and its log by keyword
+        def core(state, cfg, decoder, points, normals, valid, gt_sdf, **k):
+            made.clear()
+            res = self.orig(state, cfg, decoder, points, normals, valid, gt_sdf, **k)
+            if self.keep == "rows":
+                pairs = made[-1].weight.sum() if made else None
+                self.calls.append((self.frame_id, pairs, int(k["n_iters"])))
+                return res
+            rec = {"frame_id": self.frame_id, "gt": gt_sdf, "n_iters": int(k["n_iters"]),
+                   "code_reg_lambda": float(k["code_reg_lambda"]), "refined": res.refined,
+                   "latents": res.latents, "nll": (k.get("log") or {}).get("nll")}
+            if self.keep == "check":
+                self.calls.append(rec)
+            else:
+                rec["eligible"] = int(res.refined.sum())
+                if self.best is None or rec["eligible"] > self.best["eligible"]:
+                    rec["state"] = {f: getattr(state, f).clone() for f in state._fields}
+                    self.best = rec
+            return res
+
+        refine_mod.refine_targets = refine_targets
+        refine_mod.refine_latents_core = core
+
+    def close(self):
+        self.mod.refine_latents_core = self.orig
+        self.mod.refine_targets = self.orig_targets
+
+
 class Capture:
     """What the check reads: after each cadence frame a copy of the map
     state and of the frame's processed cloud, and the mesher's batch of the
-    frame's extraction (``fused_extract``'s result)."""
+    frame's extraction (``fused_extract``'s result); with ``refine``, each
+    refinement (``RefineTap``)."""
 
-    def __init__(self):
+    def __init__(self, refine: bool = False):
         self.tap = ExtractTap(keep_all=True)
+        self.refine = RefineTap("check") if refine else None
         self.cadences = []
 
     def close(self):
         self.tap.close()
+        if self.refine is not None:
+            self.refine.close()
 
     def after_cadence(self, pipe, frame_id: int):
         st = pipe.map.state
@@ -244,9 +310,21 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
     def step(fid):
         pipe.process_frame(traffic.frame(fid), fid, use_gt_pose=traffic.posed)
 
+    # set-up: the warm-up cycles; with refinement the one of most eligible
+    # voxels is kept for the check, with its frame's cloud and pose
+    refining = bool(fusion.get("do_optimize", False))
+    setup_tap = RefineTap("best") if refining else None
     n_warm = int(traffic_spec["warm_cycles"]) * len(traffic.order)
     for fid in range(n_warm):
+        if setup_tap is not None:
+            setup_tap.frame_id = fid
         step(fid)
+        best = setup_tap.best if setup_tap is not None else None
+        if best is not None and best["frame_id"] == fid and "cloud" not in best:
+            best["cloud"] = tuple(x.clone() for x in pipe.tracker.last_processed_pc)
+            best["pose"] = pipe.tracker.all_pd_pose[fid]
+    if setup_tap is not None:
+        setup_tap.close()
     fid = n_warm
     pipe.mesher.current_mesh()
     sync()
@@ -255,8 +333,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
     n_trace = int(traffic_spec["trace_cycles"]) * cadence
     cuda = dev.type == "cuda"
     events, frame_ids, traced = [], [], []
-    prof = trace_info = counter = tap = None
+    prof = trace_info = counter = tap = rtap = None
     launches0, reads0 = launches.snapshot(), pipe.tracker.host_reads
+    refines0 = len(pipe.map.refine_log)
     start_ev = torch.cuda.Event(enable_timing=True) if cuda else None
     # no collection of the garbage collector inside the window: what set-up
     # made is frozen, and what the window makes waits for its close
@@ -277,6 +356,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
             from torch.profiler import ProfilerActivity, profile
 
             counter, tap = GroupCounter(), ExtractTap(keep_all=False)
+            rtap = RefineTap("rows") if refining else None
             # the device's activity and the host's CUDA calls only: recording every
             # host operator would slow the host, which paces these frames
             acts = [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]
@@ -286,6 +366,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
         tracing = prof is not None and trace_info is None
         if tracing:
             counter.frame_id = tap.frame_id = fid
+            if rtap is not None:
+                rtap.frame_id = fid
         step(fid)
         if tracing:
             now = launches.snapshot()
@@ -307,11 +389,14 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
             prof.__exit__(None, None, None)
             counter.close()
             tap.close()
+            if rtap is not None:
+                rtap.close()
             frames = list(range(trace_from, trace_from + n_trace))
             trace_info = {
                 "frames": frames, "launches": per_frame,
                 "groups": [counter.by_frame[f] for f in frames if f in counter.by_frame],
-                "sizes": sizes, "extractions": tap.calls}
+                "sizes": sizes, "extractions": tap.calls,
+                "refines": rtap.calls if rtap is not None else []}
         fid += 1
         if time.perf_counter() - t0 >= seconds and (prof is None or trace_info is not None):
             break
@@ -320,6 +405,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
     gc.enable()
     gc.unfreeze()
     launches1, reads1 = launches.snapshot(), pipe.tracker.host_reads
+    refines1 = len(pipe.map.refine_log)
     if cuda:
         ms = [start_ev.elapsed_time(events[0])] + [
             a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])]
@@ -337,6 +423,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
         trace_info["gn_rows"] = [int(b) for _, b in sizes]
         trace_info["extractions"] = [(f, int(out[2].sum()), n)
                                      for f, out, n in trace_info["extractions"]]
+        # a refinement's rows: the corner pairs that count, in each of its steps
+        trace_info["refines"] = [(f, int(pairs), iters)
+                                 for f, pairs, iters in trace_info["refines"]]
         with tempfile.TemporaryDirectory() as tmp:
             path = Path(tmp) / "trace.json"
             prof.export_chrome_trace(str(path))
@@ -345,15 +434,26 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
             trace_info["trace"] = Trace.load(path)
         del prof
     occupied = int(pipe.map.state.n_occupied)
+    # the window's refinements, from the program's own log (its events read now)
+    window_refines = pipe.map.refine_summary()[refines0:refines1]
+    refine_info = {"n_iters": int(pipe.map.optim_n_iters), "count": refines1 - refines0,
+                   **{k: [e[k] for e in window_refines] for k in ("ms", "eligible", "sampled")}}
+    if window_refines:
+        log("refine: the window's {count} refinements: ms, eligible, sampled voxels "
+            "(min / median / max) {r}".format(count=refine_info["count"], r=[
+                (min(v), float(np.median(v)), max(v))
+                for v in (refine_info[k] for k in ("ms", "eligible", "sampled"))]))
 
     # -- the check's interval ------------------------------------------------
     # The same loop runs on, untimed, to the second cadence frame after the
     # window: the map and the cloud of both cadences, the mesh batch of the
     # second and the GN evaluations of each frame between them are kept.
     # Nothing of the check runs inside the window.
-    capture, groups = Capture(), GroupCounter()
+    capture, groups = Capture(refine=refining), GroupCounter()
     while len(capture.cadences) < 2:
         groups.frame_id = capture.tap.frame_id = fid
+        if refining:
+            capture.refine.frame_id = fid
         step(fid)
         if fid % cadence == 0:
             capture.after_cadence(pipe, fid)
@@ -370,11 +470,13 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
         "config": config, "traffic": traffic_spec, "frame_ids": frame_ids, "interval_ms": ms,
         "traced": traced, "cadence": cadence, "window_s": window_s, "setup_s": setup_s,
         "trace": trace_info, "launches": launches.diff(launches1, launches0),
-        "host_reads": reads1 - reads0, "occupied_voxels": occupied,
+        "host_reads": reads1 - reads0, "occupied_voxels": occupied, "refine": refine_info,
         "power_limit": power_limit() if cuda else "cpu",
     }
     cadences = capture.cadences
-    del pipe, model, capture
+    refines = {"check": capture.refine.calls if refining else [],
+               "setup": setup_tap.best if refining else None}
+    del pipe, model, capture, setup_tap
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -382,7 +484,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
 
     checks, failed, readings = check.run(
         config, traffic, cadences, poses, frame_ids, dev, log=log, control=control,
-        program_evals=groups.by_frame)
+        program_evals=groups.by_frame, refines=refines)
     return {"ctx": ctx, "checks": checks, "failed": failed, "readings": readings,
             "banned": found,
             "memory_peak": memory_peak, "kind": kind, "count": 1 if cuda else 0}

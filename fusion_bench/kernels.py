@@ -4,8 +4,9 @@ traced cadence cycles by kernel.
 Calls and sizes are the work the inputs need: the configuration's and the
 traffic camera's sizes, the tracker's evaluations of each GN group, the
 launch counters, and what each traced frame held: its valid points (the
-processed cloud's mask), and the voxels each mesh extraction decoded (its
-``keep`` mask).  Never a buffer's capacity or a kernel's chunking.  A
+processed cloud's mask), the voxels each mesh extraction decoded (its
+``keep`` mask), and the corner pairs that count in each latent refinement
+(its targets' weights).  Never a buffer's capacity or a kernel's chunking.  A
 kernel whose calls cannot all be given a size leaves its metrics out.
 """
 
@@ -22,7 +23,9 @@ NAMES = (("decoder_kernel<false>", "decoder_forward"),
          ("encoder_kernel", "encoder_forward"),
          ("photometric_kernel", "photometric_hg"),
          ("gn_step_kernel", "gn_step"),
-         ("select_gather_kernel", "select_gather"))
+         ("select_gather_kernel", "select_gather"),
+         ("sdf_rows_kernel", "sdf_rows"),
+         ("sdf_hg_kernel", "sdf_hg"))
 
 
 def kernel_of(name: str):
@@ -52,7 +55,9 @@ def mlp_rows(ctx: dict, index: int):
     """{kernel: [(rows, calls, units)]} of the MLP kernels in the ``index``-th
     traced frame, and the set of those that ran with a size not known.
     ``units``: how many times ``rows`` are computed: once a call, or once for
-    all the decoder calls of one extraction, which share its rows."""
+    all the decoder calls of one extraction, which share its rows.  A
+    refinement's ``n_iters`` Adam steps are a ``decoder_forward`` and a
+    ``decoder_vjp`` call each, of the corner pairs that count."""
     tr = ctx["trace"]
     f, counts = tr["frames"][index], tr["launches"][index]
     side = 2 * int(ctx["config"]["fusion"]["resolution"])
@@ -69,11 +74,19 @@ def mlp_rows(ctx: dict, index: int):
         unknown.add("encoder_forward")
     n = counts.get("decoder_forward", 0)
     ext = [(voxels, calls) for g, voxels, calls in tr["extractions"] if g == f]
-    if n and sum(c for _, c in ext) == n:
+    ref = [(pairs, iters, iters) for g, pairs, iters in tr.get("refines", ()) if g == f]
+    steps = sum(c for _, c, _ in ref)
+    if n and sum(c for _, c in ext) + steps == n:
         # every sample of every voxel an extraction keeps, its calls together
-        out["decoder_forward"] = [(voxels * side ** 3, calls, 1) for voxels, calls in ext]
+        out["decoder_forward"] = [(voxels * side ** 3, calls, 1)
+                                  for voxels, calls in ext] + ref
     elif n:
         unknown.add("decoder_forward")
+    n = counts.get("decoder_vjp", 0)
+    if n and steps == n:
+        out["decoder_vjp"] = ref
+    elif n:
+        unknown.add("decoder_vjp")
     return out, unknown
 
 
@@ -94,6 +107,11 @@ def traced_work(ctx: dict):
         unknown |= bad
         for k, entries in rows.items():
             work.setdefault(k, []).extend(({"rows": r}, n, u) for r, n, u in entries)
+        # the SDF term's kernels around each decoder_forward_grad call, on its rows
+        for k in ("sdf_rows", "sdf_hg"):
+            n = launches[i].get(k, 0)
+            if n:
+                work.setdefault(k, []).append(({"rows": tr["gn_rows"][i]}, n, n))
     photo = {}
     for counts in tr["groups"]:
         for g, n in enumerate(counts):

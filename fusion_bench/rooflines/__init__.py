@@ -29,11 +29,20 @@ ENCODER_WEIGHT_WORDS = 27264
 MLP_PASSES = 3
 
 
+# the decoder's reverse pass in its input: the heads, then lin3, lin2, lin1
+# and lin0 transposed (lin3's re-fed input rows included)
+DECODER_REVERSE_MACS = DECODER_HEAD_MACS + 128 * 128 + 96 * 128 + 128 * 128 + 128 * 32
+
+
 def model_flops(kernel: str, rows: int) -> float:
     """The prior's FLOPs for ``rows`` rows of ``kernel``, from the published
-    widths, each row counted once (2 x multiply-adds; no emulation passes)."""
+    widths, each row counted once (2 x multiply-adds; no emulation passes).
+    ``decoder_vjp`` is the reverse pass alone: its forward recompute repeats
+    what the refinement's ``decoder_forward`` call of the same step counts
+    (model FLOPs count no recomputation)."""
     macs = {"decoder_forward": DECODER_HIDDEN_MACS + DECODER_HEAD_MACS,
             "decoder_forward_grad": DECODER_HIDDEN_MACS + DECODER_HEAD_MACS
             + DECODER_TANGENT_MACS,
+            "decoder_vjp": DECODER_REVERSE_MACS,
             "encoder_forward": ENCODER_MACS}[kernel]
     return 2.0 * macs * rows

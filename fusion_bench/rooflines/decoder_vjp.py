@@ -3,11 +3,9 @@
 reverse pass (lin3, lin2, lin1, lin0 transposed on the tensor cores)."""
 
 from fusion_bench.rooflines import DECODER_HEAD_MACS, DECODER_HIDDEN_MACS, \
-    DECODER_WEIGHT_WORDS, MLP_PASSES, PEAK_TF32
-
-REVERSE_MACS = DECODER_HEAD_MACS + 128 * 128 + 96 * 128 + 128 * 128 + 128 * 32
+    DECODER_REVERSE_MACS, DECODER_WEIGHT_WORDS, MLP_PASSES, PEAK_TF32
 
 
 def work(rows: int):
-    return (MLP_PASSES * 2.0 * (DECODER_HIDDEN_MACS + DECODER_HEAD_MACS + REVERSE_MACS) * rows,
-            rows * (32 + 2 + 32) * 4.0 + DECODER_WEIGHT_WORDS * 4.0, PEAK_TF32)
+    return (MLP_PASSES * 2.0 * (DECODER_HIDDEN_MACS + DECODER_HEAD_MACS + DECODER_REVERSE_MACS)
+            * rows, rows * (32 + 2 + 32) * 4.0 + DECODER_WEIGHT_WORDS * 4.0, PEAK_TF32)
