@@ -18,11 +18,15 @@ float32:
 * map: ``prev`` integrated with the program's cloud and pose of the last
   cadence frame, against ``last``; where the configuration refines
   (``do_optimize``), integrated and then refined with the program's jitter
-  of that cadence (``refine_numbers``);
+  of that cadence (``refine_numbers``); with ``run_async`` the last
+  cadence replayed in the program's order, its fusion and the merges the
+  async split allows (``replay_cadence``), and each refinement the two
+  cadences dispatched, from the map its frame left;
 * refinement from set-up: the one of most eligible voxels, from the
   program's state before it, its frame's cloud and pose and its jitter;
-* mesher: the batch of the last cadence's extraction, meshed from the
-  state it was meshed from.
+* mesher: the batch of the last extraction the later of the two cadences
+  dispatched, else the earlier, meshed from the map its frame left (the
+  snapshot an async extraction reads).
 
 Each number has its limit in ``limits.json``.  ``control``: the reference
 computed one precision lower (``reference.precision.CONTROL``) is judged
@@ -185,6 +189,84 @@ def _merge_worst(readings: dict, numbers: dict, tag: str):
             readings[f"{k}.{tag}"] = v
 
 
+def replay_cadence(prior, state: dict, mcfg: dict, steps: list, frame: int, jobs: list,
+                   cloud, pose, prec, log=None) -> dict:
+    """The map after the cadence frame ``frame`` of an async run, rebuilt
+    from ``state``, the map before it, in the program's order: ``steps``
+    (``harness.MapLog``: its fusions and merges, each with its frame, from
+    the interval's start) replayed where they fall in ``frame``, the fusion
+    with the frame's ``cloud`` at its ``pose``, each merge by the plain
+    de-integration merge (``reference.refine.merge_async``) of the
+    program's ``RefineResult``.  A merge is replayed only where the async
+    split allows it: a de-integration merge of a refinement that an earlier
+    frame of the interval dispatched (``jobs``: ``harness.RefineTap``'s
+    records, keyed by the frame that dispatched each) and no step merged
+    before.  Any other merge (its own frame's refinement, one merged twice,
+    one the check did not see dispatched, or one merged in place) is left
+    out, so that what it moved shows in ``map_latent_gap``."""
+    merged = set()
+    for step in steps:
+        if step[0] == "fuse":
+            if step[1] == frame:
+                state = mapping.integrate(prior, state, mcfg, *cloud, *pose, prec)
+            continue
+        _, at, res, deintegrate = step
+        job = next((j for j in jobs if j["result"] is res), None)
+        ok = job is not None and deintegrate and job["frame_id"] < at \
+            and id(job) not in merged
+        if job is not None:
+            merged.add(id(job))
+        if at != frame:
+            continue
+        if log is not None:
+            what = f"of frame {job['frame_id']}" if job is not None else "not seen dispatched"
+            log(f"check: frame {frame} merges the refinement {what} "
+                f"({int(res.refined.sum())} slots): {'replayed' if ok else 'left out'}")
+        if ok:
+            state = refine.merge_async(state, res.latents, res.refined, res.old_latents,
+                                       res.old_counts)
+    return state
+
+
+def _async_map_stage(prior, mcfg, rcfg, cadences, poses, refines, precs, readings, log):
+    """With ``run_async`` the map stage: the last cadence replayed from the
+    one before (``replay_cadence``) and judged over every slot; each
+    refinement the two cadences dispatched, against the reference's from
+    the map its frame left (the snapshot the worker should read), that
+    frame's cloud and pose and the program's jitter."""
+    prev, last = cadences[-2], cadences[-1]
+    jobs = refines.get("check", [])
+    steps = refines.get("map_steps", [])
+    pose = poses[last["frame_id"]]
+    for name, prec in precs:
+        ref = replay_cadence(prior, prev["state"], mcfg, steps, last["frame_id"], jobs,
+                             last["cloud"], pose, F32, log if name == "program" else None)
+        got = last["state"] if name == "program" else replay_cadence(
+            prior, prev["state"], mcfg, steps, last["frame_id"], jobs, last["cloud"], pose, prec)
+        readings[name].update(map_numbers(got, ref))
+    by_frame = {c["frame_id"]: c for c in (prev, last)}
+    checked = [j for j in jobs if j["frame_id"] in by_frame]
+    if not checked:
+        log("check: no refinement dispatched in the interval")
+        for name, _ in precs:
+            _merge_worst(readings[name], refine_numbers(None, None), "cadence")
+    for job in checked:
+        c = by_frame[job["frame_id"]]
+        pts, nrm, mask = c["cloud"]
+        R, t = poses[job["frame_id"]]
+        ref = refine.refine(prior, c["state"], mcfg, rcfg, pts, nrm, mask, R, t, job["gt"], F32)
+        log(f"check: async refinement dispatched in frame {job['frame_id']}: "
+            f"{int(ref['eligible'].sum())} eligible, {ref['sampled']} sampled voxels, "
+            f"{ref['pairs']} pairs, from the map that frame left")
+        for name, prec in precs:
+            side = {"eligible": job["refined"], "latents": job["latents"], "nll": job["nll"]} \
+                if name == "program" else refine.refine(prior, c["state"], mcfg, rcfg, pts, nrm,
+                                                        mask, R, t, job["gt"], prec)
+            nums = refine_numbers(side, ref)
+            log(f"check: async refinement of frame {job['frame_id']} ({name}) {nums}")
+            _merge_worst(readings[name], nums, f"cadence{job['frame_id']}")
+
+
 def pose_numbers(prog: list, ref: list, same_evals: list) -> dict:
     """Translation (m) and rotation (rad) gaps of the sampled frames: their
     medians, and their largest over the frames that ran as many GN
@@ -237,8 +319,9 @@ def run(config: dict, traffic, cadences: list, poses: list, window_ids: list, de
     ``program_evals``: the program's GN evaluations of each group by frame
     id, for those frames; ``window_ids``: the window's frames (the posed
     poses and the quality log); ``refines``: the program's refinements
-    (``harness.RefineTap``), ``check`` those of the cadence frames,
-    ``setup`` the set-up's of most eligible voxels.
+    (``harness.RefineTap``), ``check`` those of the interval by the frame
+    that dispatched each, ``setup`` the set-up's of most eligible voxels,
+    ``map_steps`` the interval's fusions and merges (``harness.MapLog``).
 
     (checks {name: [value, limit]}, failed count, readings by side); with
     ``control`` the checks are the control's, the program's logged beside."""
@@ -288,37 +371,42 @@ def run(config: dict, traffic, cadences: list, poses: list, window_ids: list, de
     refining = bool(fusion.get("do_optimize", False))
     rcfg = config.get("refine")
     refines = refines or {}
-    ref_map = mapping.integrate(prior, prev["state"], mcfg, pts, nrm, mask, R, t, F32)
-    if refining:
-        rec = next((r for r in refines.get("check", [])
-                    if r["frame_id"] == last["frame_id"]), None)
-        # without the program's jitter the reference refines with none
-        jitter = rec["gt"] if rec is not None else torch.zeros(
-            (pts.shape[0], 8), dtype=torch.float32, device=pts.device)
-        ref_map = refine.refine(prior, ref_map, mcfg, rcfg, pts, nrm, mask, R, t, jitter, F32)
-        log(f"check: refinement of frame {last['frame_id']}: {int(ref_map['eligible'].sum())} "
-            f"eligible, {ref_map['sampled']} sampled voxels, {ref_map['pairs']} pairs; the "
-            f"program's jitter: mean {float(jitter.mean()):.3g}, std {float(jitter.std()):.5g}; "
-            f"its n_iters, code_reg_lambda: "
-            f"{(rec['n_iters'], rec['code_reg_lambda']) if rec is not None else None}")
-    for name, prec in precs:
-        if name == "program":
-            got = last["state"]
-        else:
-            got = mapping.integrate(prior, prev["state"], mcfg, pts, nrm, mask, R, t, prec)
-            if refining:
-                got = refine.refine(prior, got, mcfg, rcfg, pts, nrm, mask, R, t, jitter, prec)
-        refined = None
+    if refining and fusion.get("run_async", False):
+        _async_map_stage(prior, mcfg, rcfg, cadences, poses, refines, precs, readings, log)
+    else:
+        ref_map = mapping.integrate(prior, prev["state"], mcfg, pts, nrm, mask, R, t, F32)
         if refining:
-            side = None if rec is None else {
-                "eligible": rec["refined"] if name == "program" else got["eligible"],
-                "latents": got["latents"], "nll": rec["nll"] if name == "program" else got["nll"]}
-            refined = ref_map["eligible"] if side is None \
-                else ref_map["eligible"] | side["eligible"]
-            nums = refine_numbers(side, ref_map)
-            log(f"check: refinement of frame {last['frame_id']} ({name}) {nums}")
-            _merge_worst(readings[name], nums, "cadence")
-        readings[name].update(map_numbers(got, ref_map, refined))
+            rec = next((r for r in refines.get("check", [])
+                        if r["frame_id"] == last["frame_id"]), None)
+            # without the program's jitter the reference refines with none
+            jitter = rec["gt"] if rec is not None else torch.zeros(
+                (pts.shape[0], 8), dtype=torch.float32, device=pts.device)
+            ref_map = refine.refine(prior, ref_map, mcfg, rcfg, pts, nrm, mask, R, t, jitter, F32)
+            log(f"check: refinement of frame {last['frame_id']}: "
+                f"{int(ref_map['eligible'].sum())} eligible, {ref_map['sampled']} sampled "
+                f"voxels, {ref_map['pairs']} pairs; the program's jitter: mean "
+                f"{float(jitter.mean()):.3g}, std {float(jitter.std()):.5g}; "
+                f"its n_iters, code_reg_lambda: "
+                f"{(rec['n_iters'], rec['code_reg_lambda']) if rec is not None else None}")
+        for name, prec in precs:
+            if name == "program":
+                got = last["state"]
+            else:
+                got = mapping.integrate(prior, prev["state"], mcfg, pts, nrm, mask, R, t, prec)
+                if refining:
+                    got = refine.refine(prior, got, mcfg, rcfg, pts, nrm, mask, R, t, jitter, prec)
+            refined = None
+            if refining:
+                side = None if rec is None else {
+                    "eligible": rec["refined"] if name == "program" else got["eligible"],
+                    "latents": got["latents"],
+                    "nll": rec["nll"] if name == "program" else got["nll"]}
+                refined = ref_map["eligible"] if side is None \
+                    else ref_map["eligible"] | side["eligible"]
+                nums = refine_numbers(side, ref_map)
+                log(f"check: refinement of frame {last['frame_id']} ({name}) {nums}")
+                _merge_worst(readings[name], nums, "cadence")
+            readings[name].update(map_numbers(got, ref_map, refined))
 
     # refinement: the set-up's of most eligible voxels, from the program's
     # state before it (the map stage above checks the integration that made it)

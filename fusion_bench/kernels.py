@@ -72,17 +72,27 @@ def mlp_rows(ctx: dict, index: int):
         out["encoder_forward"] = [(8 * tr["valid_points"][index], 1, 1)]
     elif n:
         unknown.add("encoder_forward")
-    n = counts.get("decoder_forward", 0)
     ext = [(voxels, calls) for g, voxels, calls in tr["extractions"] if g == f]
     ref = [(pairs, iters, iters) for g, pairs, iters in tr.get("refines", ()) if g == f]
-    steps = sum(c for _, c, _ in ref)
-    if n and sum(c for _, c in ext) + steps == n:
+    # the calls launched and the calls due: the frame's own, or where the jobs
+    # run on the worker beside later frames (``async``), the traced frames'
+    # together, each job's rows counted in the frame that dispatched it
+    if tr.get("async"):
+        launched = lambda k, _=0: sum(c.get(k, 0) for c in tr["launches"])
+        steps = sum(i for _, _, i in tr.get("refines", ()))
+        extracted = sum(c for _, _, c in tr["extractions"])
+    else:
+        launched = counts.get
+        steps = sum(c for _, c, _ in ref)
+        extracted = sum(c for _, c in ext)
+    n = launched("decoder_forward", 0)
+    if n and extracted + steps == n:
         # every sample of every voxel an extraction keeps, its calls together
         out["decoder_forward"] = [(voxels * side ** 3, calls, 1)
                                   for voxels, calls in ext] + ref
     elif n:
         unknown.add("decoder_forward")
-    n = counts.get("decoder_vjp", 0)
+    n = launched("decoder_vjp", 0)
     if n and steps == n:
         out["decoder_vjp"] = ref
     elif n:

@@ -118,3 +118,18 @@ def refine(prior, state: dict, cfg: dict, rcfg: dict, points, normals, valid, R,
                nll=torch.stack(nlls) if nlls else torch.zeros(0, device=lat.device),
                sampled=int(torch.unique(slot).numel()), pairs=int(pairs.sum()))
     return out
+
+
+def merge_async(state: dict, latents, refined, old_latents, old_counts) -> dict:
+    """``state`` after merging a refinement that ran on a copy of an earlier
+    map (DI-Fusion's de-integration merge): over the ``refined`` slots,
+    ``cur + (opt - old) * old_count / cur_count``, so that what was fused
+    into them since the copy stays, and those slots marked refined.
+    ``latents`` (opt), ``old_latents`` and ``old_counts``: the refinement's
+    result and the copy's latents and counts."""
+    cur = torch.clamp_min(state["obs_count"], 1.0)[:, None]
+    merged = state["latents"] + (latents - old_latents) * old_counts[:, None] / cur
+    out = dict(state)
+    out.update(latents=torch.where(refined[:, None], merged, state["latents"]),
+               optimized=state["optimized"] | refined)
+    return out

@@ -64,3 +64,19 @@ def test_rows_pair_by_box_key():
     assert out["frontend_point_gap"] == 0.0 and out["frontend_row_mismatch"] == 2.0
     # by position the same clouds read the shift of every later row
     assert frontend_numbers(got, ref)["frontend_point_gap"] > 0
+
+
+def test_trace_keeps_streams_and_reads_their_overlap():
+    """The loop's stream 7 runs 0-40 and 60-100 us, a worker's stream 20 runs
+    30-70 us: 20 of the worker's 40 us overlap the loop's work; busy time
+    stays the union over both streams."""
+    def kernel(ts, dur, stream):
+        return dict(_ev("kernel", "k", ts, dur), tid=stream, args={"stream": stream})
+
+    tr = Trace([kernel(0, 40, 7), kernel(60, 40, 7), kernel(30, 40, 20),
+                _ev("cuda_runtime", "cudaLaunchKernel", 0, 2)])
+    assert tr.streams == [7, 7, 20] and tr.first_stream == 7
+    assert tr.overlap_share(7) == pytest.approx(0.5)
+    assert tr.overlap_share(20) == pytest.approx(20 / 80)
+    assert tr.busy_s == pytest.approx(100e-6)
+    assert Trace([kernel(0, 40, 7)]).overlap_share(7) is None

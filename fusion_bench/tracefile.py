@@ -5,7 +5,8 @@ The profiler runs over the traced frames alone, synchronised at both ends,
 so the trace's span, from its first event to its last, is the traced
 window.  Device events are kernels, copies and memsets on any
 stream; busy time is the union of their intervals, so work that overlaps on
-two streams counts once.  Host events are the CUDA runtime and driver calls
+two streams counts once; each event's stream is kept, so that the work of
+one stream can be held against the others'.  Host events are the CUDA runtime and driver calls
 (and operators, where the trace has them).
 """
 
@@ -20,11 +21,13 @@ HOST_CATS = ("cpu_op", "cuda_runtime", "cuda_driver", "user_annotation")
 
 
 class Trace:
-    """``device``, ``host``: [(name, start_us, end_us)]; ``window``: the
-    trace's span (start_us, end_us); ``window_s``: its length."""
+    """``device``, ``host``: [(name, start_us, end_us)]; ``streams``: each
+    device event's stream (the event's ``stream`` argument, else its
+    ``tid``), in ``device``'s order; ``window``: the trace's span (start_us,
+    end_us); ``window_s``: its length."""
 
     def __init__(self, events: list):
-        self.device, self.host = [], []
+        self.device, self.host, self.streams = [], [], []
         for e in events:
             if "dur" not in e or "ts" not in e:
                 continue
@@ -32,6 +35,7 @@ class Trace:
             span = (e["name"], s, s + float(e["dur"]))
             if e.get("cat") in DEVICE_CATS:
                 self.device.append(span)
+                self.streams.append((e.get("args") or {}).get("stream", e.get("tid")))
             elif e.get("cat") in HOST_CATS:
                 self.host.append(span)
         spans = self.device + self.host
@@ -50,6 +54,24 @@ class Trace:
     @property
     def busy_s(self) -> float:
         return union_length([(s, e) for _, s, e in self.device]) * 1e-6
+
+    @property
+    def first_stream(self):
+        """The stream of the earliest device event (None without one)."""
+        if not self.device:
+            return None
+        return self.streams[min(range(len(self.device)), key=lambda i: self.device[i][1])]
+
+    def overlap_share(self, main):
+        """The share of the device time of the streams other than ``main``
+        (the union of their events) that overlaps device work on ``main``;
+        None where they ran nothing."""
+        other = [(s, e) for (_, s, e), st in zip(self.device, self.streams) if st != main]
+        mine = [(s, e) for (_, s, e), st in zip(self.device, self.streams) if st == main]
+        theirs = union_length(other)
+        if theirs <= 0:
+            return None
+        return (theirs + union_length(mine) - union_length(other + mine)) / theirs
 
     def top_device_ops(self, n: int = 10) -> list:
         total = {}
